@@ -1,0 +1,126 @@
+"""Build and load the port's CUDA kernels.
+
+One ``nvcc`` call compiles every ``csrc/*.cu`` into one shared library with
+a plain C interface (``csrc/api.h``) under ``build/divshot_tpu_torch/`` at
+the repository root; ``ctypes`` loads it. The library's file name carries a
+hash of the sources and flags, so a changed source builds anew and an
+unchanged one is reused. The build happens at first use, never at import.
+
+``LAUNCHES`` counts kernel launches by name. Each wrapper adds one where it
+launches its kernel and nowhere else, so a caller can zero the counts, run
+a path, and see which kernels that path went through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "divshot_tpu_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+LAUNCHES = {"expand": 0, "forward": 0}
+
+_P = ctypes.c_void_p
+_I32 = ctypes.c_int32
+_SIGNATURES = {
+    "divshot_expand": [_P] * 9 + [_I32] * 5 + [_P, _P, _P],
+    "divshot_forward": [_P, ctypes.c_int64, _P, _I32, _I32, _I32, _I32,
+                        ctypes.c_float, _P, _P],
+}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("NVCC"), shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set NVCC or CUDA_HOME)")
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.h"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libdivshot_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> tuple[Path, float]:
+    """Compile the library if its sources changed -> (path, seconds spent
+    compiling, 0 when it was already built)."""
+    so = library_path()
+    if so.exists():
+        return so, 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}): {' '.join(cmd)}"
+                           f"\n{res.stderr}")
+    os.replace(tmp, so)
+    return so, time.perf_counter() - t0
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed."""
+    so, _ = build()
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check_launch(name: str, err: int) -> None:
+    """Raise on a non-zero cudaError_t, else count the launch."""
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError_t {err}")
+    LAUNCHES[name] += 1
+
+
+def stream_ptr(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None,
+            device: torch.device | None = None) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` (and
+    ``shape`` / ``device`` when given)."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")

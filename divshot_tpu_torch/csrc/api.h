@@ -1,0 +1,32 @@
+// Plain C interface of the port's CUDA kernels, loaded from Python with
+// ctypes (divshot_tpu_torch/_build.py). Every pointer is device memory
+// allocated by the Python wrapper; every function launches on `stream`,
+// does not synchronise, and returns the cudaError_t of the launch
+// (0 = cudaSuccess).
+#pragma once
+#include <stdint.h>
+
+#ifdef __cplusplus
+extern "C" {
+#endif
+
+// Run-length expansion of per-gaussian tile rectangles into `cap`
+// per-tile instance slots: see expand.cu.
+int divshot_expand(const int32_t* offsets, const int32_t* counts,
+                   const int32_t* tmin_x, const int32_t* tmin_y,
+                   const int32_t* nx, const int32_t* depth_key,
+                   const float* u, const float* v, const float* rad2,
+                   int32_t n, int32_t cap, int32_t tiles_x,
+                   int32_t tile_size, int32_t depth_bits,
+                   uint32_t* key_out, int32_t* owner_out, void* stream);
+
+// Front-to-back alpha compositing of depth-sorted instances per tile:
+// see forward.cu.
+int divshot_forward(const float* table, int64_t num_instances,
+                    const int32_t* tile_start, int32_t num_tiles,
+                    int32_t tiles_x, int32_t tile_size, int32_t nch,
+                    float t_eps, float* out, void* stream);
+
+#ifdef __cplusplus
+}
+#endif

@@ -1,0 +1,201 @@
+"""Instance binning for the tile rasterizer (counterpart of
+``divshot_tpu/raster/pallas_bin.py``).
+
+``prep`` computes each visible gaussian's tile rectangle, its instance count
+(capped at ``mt``) and exclusive offset, and its depth-key bits.
+``expand_instances`` is the wrapper of the CUDA expand kernel
+(``csrc/expand.cu``): it writes one 32-bit (tile | depth) key and one owner
+per instance slot. ``expand_sorted`` sorts the keys, builds the feature
+table and the per-tile ranges, as the JAX function does after its Pallas
+call.
+
+On a CPU tensor ``expand_instances`` runs ``expand_instances_plain``, the
+plain PyTorch version of the same function; on a CUDA tensor it launches
+the kernel or raises.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from divshot_tpu_torch import _build
+from divshot_tpu_torch.raster.raster import build_feature_table
+
+CULLED_KEY = 0xFFFFFFFF
+NO_OWNER = 0x7FFFFFFF
+
+
+class Prep(NamedTuple):
+    """Per-gaussian expansion inputs; all (N,) tensors."""
+    offsets: torch.Tensor     # int32 exclusive instance offsets
+    counts: torch.Tensor      # int32 instances per gaussian
+    tmin_x: torch.Tensor      # int32 first tile column
+    tmin_y: torch.Tensor      # int32 first tile row
+    nx: torch.Tensor          # int32 tile columns of the rectangle
+    depth_key: torch.Tensor   # int32 depth field of the sort key
+    u: torch.Tensor           # f32 pixel centre
+    v: torch.Tensor
+    rad2: torch.Tensor        # f32 squared cull radius
+    total: torch.Tensor       # () int32 instance demand (before the cap)
+
+
+class SortedBins(NamedTuple):
+    """Depth-sorted per-tile instances (the JAX ``SortedBins``)."""
+    table: torch.Tensor          # (6 + nch, I) f32 [u v a b c logop ch...]
+    tile_start: torch.Tensor     # (T+1,) int32
+    s_owner: torch.Tensor        # (I,) int32 owner per sorted instance
+    g_offsets: torch.Tensor      # (N,) int32
+    g_counts: torch.Tensor       # (N,) int32
+    num_instances: torch.Tensor  # () int32 demand before the cap
+    tile_counts: torch.Tensor    # (T,) int32
+
+
+def key_bits(width: int, height: int, tile_size: int) -> tuple[int, int]:
+    """-> (number of tiles, depth bits of the 32-bit sort key)."""
+    num_tiles = -(-width // tile_size) * -(-height // tile_size)
+    if num_tiles >= 1 << 19:
+        raise ValueError("tile grid too large for packed keys")
+    return num_tiles, 32 - max(1, (num_tiles + 1).bit_length())
+
+
+def prep(means2d, depths, radii, radii_xy, rad2, width: int, height: int,
+         tile_size: int, mt: int) -> Prep:
+    """Counterpart of ``pallas_bin.prep_gdata`` without the TPU packing."""
+    n = means2d.shape[0]
+    tw = -(-width // tile_size)
+    th = -(-height // tile_size)
+    u = means2d[:, 0].contiguous()
+    v = means2d[:, 1].contiguous()
+    rx = radii_xy[:, 0] if radii_xy is not None else radii
+    ry = radii_xy[:, 1] if radii_xy is not None else radii
+
+    def tile_coord(x, hi, fn):
+        return torch.clamp(fn(x / tile_size), 0, hi).to(torch.int32)
+
+    tmin_x = tile_coord(u - rx, tw, torch.floor)
+    tmax_x = tile_coord(u + rx, tw, torch.ceil)
+    tmin_y = tile_coord(v - ry, th, torch.floor)
+    tmax_y = tile_coord(v + ry, th, torch.ceil)
+    nx = tmax_x - tmin_x
+    counts = torch.clamp_max(
+        torch.where(radii > 0, nx * (tmax_y - tmin_y), 0), mt).to(torch.int32)
+    offsets = (torch.cumsum(counts, 0, dtype=torch.int32) - counts)
+    total = (offsets[-1] + counts[-1] if n
+             else torch.zeros((), dtype=torch.int32, device=u.device))
+
+    # the key's depth field: the top bits of the depth's float pattern
+    _, depth_bits = key_bits(width, height, tile_size)
+    db = min(depth_bits, 24)
+    inf = torch.full((), float("inf"), device=u.device)
+    dbits = torch.where(depths > 0, depths, inf).contiguous().view(torch.int32)
+    depth_key = ((dbits >> 8) >> (24 - db)) << (depth_bits - db)
+    r2 = rad2 if rad2 is not None else torch.full_like(u, 1e30)
+    return Prep(offsets=offsets, counts=counts, tmin_x=tmin_x.contiguous(),
+                tmin_y=tmin_y.contiguous(), nx=nx.contiguous(),
+                depth_key=depth_key.contiguous(), u=u, v=v,
+                rad2=r2.contiguous(), total=total)
+
+
+def expand_instances(p: Prep, cap: int, *, width: int, height: int,
+                     tile_size: int = 16) -> tuple[torch.Tensor, torch.Tensor]:
+    """-> (keys (cap,) int32 holding the uint32 key bits, owners (cap,)
+    int32). CPU tensors take the plain version; CUDA tensors the kernel."""
+    if p.u.device.type == "cpu":
+        return expand_instances_plain(p, cap, width=width, height=height,
+                                      tile_size=tile_size)
+    n = p.u.shape[0]
+    dev = p.u.device
+    for name in ("offsets", "counts", "tmin_x", "tmin_y", "nx", "depth_key"):
+        _build.require(getattr(p, name), name, torch.int32, (n,), dev)
+    for name in ("u", "v", "rad2"):
+        _build.require(getattr(p, name), name, torch.float32, (n,), dev)
+    if not 0 < cap < 2 ** 31:
+        raise ValueError(f"instance capacity {cap} out of range")
+    _, depth_bits = key_bits(width, height, tile_size)
+    keys = torch.empty((cap,), dtype=torch.int32, device=dev)
+    owners = torch.empty((cap,), dtype=torch.int32, device=dev)
+    err = _build.library().divshot_expand(
+        p.offsets.data_ptr(), p.counts.data_ptr(), p.tmin_x.data_ptr(),
+        p.tmin_y.data_ptr(), p.nx.data_ptr(), p.depth_key.data_ptr(),
+        p.u.data_ptr(), p.v.data_ptr(), p.rad2.data_ptr(), n, cap,
+        -(-width // tile_size), tile_size, depth_bits, keys.data_ptr(),
+        owners.data_ptr(), _build.stream_ptr(dev))
+    _build.check_launch("expand", err)
+    return keys, owners
+
+
+def expand_instances_plain(p: Prep, cap: int, *, width: int, height: int,
+                           tile_size: int = 16
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the expand kernel, same outputs."""
+    n = p.u.shape[0]
+    dev = p.u.device
+    tw = -(-width // tile_size)
+    _, depth_bits = key_bits(width, height, tile_size)
+    i = torch.arange(cap, dtype=torch.int32, device=dev)
+    in_range = i < p.total
+    if n == 0:
+        return (torch.full((cap,), -1, dtype=torch.int32, device=dev),
+                torch.full((cap,), NO_OWNER, dtype=torch.int32, device=dev))
+    g = torch.clamp(torch.searchsorted(p.offsets, i, right=True) - 1, 0, n - 1)
+    j = i - p.offsets[g]
+    w = torch.clamp_min(p.nx[g], 1)
+    jy = torch.div(j, w, rounding_mode="floor")
+    tx = p.tmin_x[g] + (j - jy * w)
+    ty = p.tmin_y[g] + jy
+    ts = float(tile_size)
+    ttx = tx.to(torch.float32) * ts
+    tty = ty.to(torch.float32) * ts
+    ug, vg = p.u[g], p.v[g]
+    zero = torch.zeros((), device=dev)
+    dx = torch.maximum(torch.maximum(ttx - ug, ug - (ttx + ts)), zero)
+    dy = torch.maximum(torch.maximum(tty - vg, vg - (tty + ts)), zero)
+    keep = dx * dx + dy * dy <= p.rad2[g]
+    tile = (ty * tw + tx).to(torch.int64)
+    key = torch.where(in_range & keep,
+                      (tile << depth_bits) | p.depth_key[g].to(torch.int64),
+                      CULLED_KEY)
+    owner = torch.where(in_range, g.to(torch.int32), NO_OWNER)
+    return key.to(torch.int32), owner.to(torch.int32)
+
+
+def sort_instances(keys, owners, *, num_tiles: int, depth_bits: int,
+                   guard_lanes: int = 2048):
+    """(tile | depth) sort of the expanded instances -> (sorted keys as
+    int64, owners in that order, tile_start (T+1,) int32). ``tile_start``
+    is clamped ``guard_lanes`` short of the capacity, as in JAX."""
+    cap = keys.shape[0]
+    # torch.uint32 has thin op coverage: sort the key bits widened to int64
+    s_key, perm = torch.sort(keys.to(torch.int64) & CULLED_KEY, stable=True)
+    s_tile = torch.clamp_max(s_key >> depth_bits, num_tiles)
+    bounds = torch.searchsorted(
+        s_tile, torch.arange(num_tiles + 1, device=s_tile.device))
+    tile_start = torch.clamp_max(
+        bounds, max(cap - guard_lanes, cap // 2)).to(torch.int32)
+    return s_key, owners[perm], tile_start
+
+
+def expand_sorted(means2d, conics, depths, radii, radii_xy, rad2, colors,
+                  opacities, *, width: int, height: int, tile_size: int = 16,
+                  instance_capacity: int = 1 << 20, mt: int = 64,
+                  guard_lanes: int = 2048) -> SortedBins:
+    """Expand -> (tile | depth) sort -> feature table and per-tile ranges."""
+    if mt > 256:
+        raise ValueError("mt must be <= 256")
+    cap = instance_capacity
+    num_tiles, depth_bits = key_bits(width, height, tile_size)
+    p = prep(means2d, depths, radii, radii_xy, rad2, width, height,
+             tile_size, mt)
+    keys, owners = expand_instances(p, cap, width=width, height=height,
+                                    tile_size=tile_size)
+    s_key, s_owner, tile_start = sort_instances(
+        keys, owners, num_tiles=num_tiles, depth_bits=depth_bits,
+        guard_lanes=guard_lanes)
+    inst = torch.where(s_key == CULLED_KEY, -1, s_owner)
+    table = build_feature_table(means2d, conics, colors, opacities, inst)
+    return SortedBins(
+        table=table, tile_start=tile_start, s_owner=s_owner,
+        g_offsets=p.offsets, g_counts=p.counts, num_instances=p.total,
+        tile_counts=tile_start[1:] - tile_start[:-1])
