@@ -25,10 +25,23 @@ Phases, each a function of ``(device, scale)``:
    ``python -m divshot_tpu_torch.apps.train --demo``. Each of (a), (b),
    (c) and (d) counts its own kernel launches, and each holds the three
    kernels against their plain versions at its own shapes (the backward
-   with the cotangent of its loss and its AbsGS setting).
+   with the cotangent of its loss and its AbsGS setting);
+6. the exact-2DGS training path (``model_type=1``): (a) the 2DGS loss bar
+   of ``tests/test_train.py:103-113`` met through the surfel kernels; (b)
+   the train2d cell, phase 5(b)'s scene and views trained as exact
+   surfels with the normal-consistency loss from step 0, warm-up then 30
+   steps timed with CUDA events, with its stage breakdown; (c) one
+   ``render_surfels`` forward + backward of the repo's trained 2DGS model
+   ``runs/tpu_bricks_2dgs2/point_cloud.ply`` at 1920x1080; (d) a few steps
+   of ``apps.train --demo --model_type 1``. Each counts its own launches
+   of the expand and the two surfel kernels and holds them against their
+   plain versions at its own shapes (the backward with the cotangent of
+   its loss). Phase 3 also holds the surfel kernels against their plain
+   versions at nch 3 and 5, with NaN, edge-on and clamping surfels.
 
-It prints one line per phase, then a JSON line of numbers per kernel and
-scene, the
+Both compositing routes, 3DGS and surfels, go through one harness
+(``Route``, ``Frame``, ``kernel_records``, ``stage_times``). It prints
+one line per phase, then a JSON line of numbers per kernel and scene, the
 card's ``nvidia-smi`` name and power limit, and last the result line
 ``{"ok": true, "device": {...}}``. Any failure raises: the exit code is then
 non-zero and no result line is printed.
@@ -46,6 +59,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections.abc import Callable
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -61,20 +75,26 @@ from divshot_tpu_torch.gsio.synthetic import (orbit_cameras, random_scene,
                                               render_gt_images)
 from divshot_tpu_torch.raster import bin as B
 from divshot_tpu_torch.raster import raster as R
+from divshot_tpu_torch.raster import surfel_raster as SR
 from divshot_tpu_torch.raster.render import (frame_inputs, render,
                                              render_fast)
 from divshot_tpu_torch.splat.gaussians import GaussianParams, init_from_points
 from divshot_tpu_torch.train.losses import photometric_loss
 from divshot_tpu_torch.train.trainer import (Dataset, Trainer, TrainState,
+                                             geometry_loss,
+                                             hypers_from_config,
                                              make_train_step,
                                              render_kwargs_from_config)
 
 REPO = Path(__file__).resolve().parent
 MODEL = REPO / "runs" / "tpu_bricks_mcmc" / "point_cloud.ply"
+MODEL_2DGS = REPO / "runs" / "tpu_bricks_2dgs2" / "point_cloud.ply"
 
 FORWARD_ATOL = 3e-5
-# backward kernel vs plain version: npix exactly, every other row within
-# this fraction of the row's largest magnitude
+# backward kernel vs plain version: npix exactly; every other entry within
+# this fraction of its row's largest magnitude, and within this fraction of
+# its own scale (``check_backward``), which an outlier column elsewhere in
+# the row, such as an edge-on surfel's, cannot inflate
 BACKWARD_RTOL = 1e-4
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s outside
 # the tensor cores
@@ -104,6 +124,30 @@ def backward_ops(c: R.PairCounts, nch: int, with_absgrad: bool) -> int:
             + (30 + 4 * bool(with_absgrad)) * c.live)
 
 
+def surfel_forward_ops(c: SR.SurfelPairCounts, nch: int) -> int:
+    """float32 operations the surfel forward must do on this data: per
+    evaluated pair hu and hv (12), p (9), the p2 cull (2), u and v (2
+    divisions), rho3d (3), dx, dy and rho2d (6), the branch (2), G (2), a
+    (1) and the alpha cull (1): 40; per pair past the p2 and alpha culls
+    the depth z (4) and its cull (1); per pair past the z cull too alpha's
+    clamp, 1 - alpha, q and the stop test (4); per applied pair w, the z
+    and z^2 sums (5) and a multiply-add per channel (2 nch)."""
+    return (40 * c.evaluated + 5 * c.shaded + 4 * c.passed
+            + (5 + 2 * nch) * c.applied)
+
+
+def surfel_backward_ops(c: SR.SurfelPairCounts, nch: int) -> int:
+    """float32 operations the surfel backward must do on this data: the
+    forward's per evaluated pair (40), per pair past the p2 and alpha culls
+    (5) and per pair past the z cull (4); per applied pair w, cdot, the
+    running w cdot, d_z, the clamp test, d_alpha, g_rho, d_u, d_v, d_dx,
+    d_dy, g_p (3 divisions), d_hu and d_hv (18), the 20 + nch rows (dT 15,
+    dzp 2, dc2d 2, dop 1, ds 14, |ds| 2, npix 1, dch nch) and their
+    block-reduction adds (20 + nch): 110 + 4 nch."""
+    return (40 * c.evaluated + 5 * c.shaded + 4 * c.passed
+            + (110 + 4 * nch) * c.applied)
+
+
 KERNELS = {
     "expand": dict(source="divshot_tpu_torch/csrc/expand.cu",
                    replaces="divshot_tpu/raster/pallas_bin.py:71"),
@@ -111,9 +155,83 @@ KERNELS = {
                     replaces="divshot_tpu/raster/pallas_raster.py:267"),
     "backward": dict(source="divshot_tpu_torch/csrc/backward.cu",
                      replaces="divshot_tpu/raster/pallas_raster.py:437"),
+    "surfel_forward": dict(source="divshot_tpu_torch/csrc/surfel_forward.cu",
+                           replaces="divshot_tpu/raster/pallas_surfel.py:126"),
+    "surfel_backward": dict(
+        source="divshot_tpu_torch/csrc/surfel_backward.cu",
+        replaces="divshot_tpu/raster/pallas_surfel.py:202"),
 }
 VIEWER_KERNELS = ("expand", "forward")
 TRAIN_KERNELS = ("expand", "forward", "backward")
+SURFEL_KERNELS = ("expand", "surfel_forward", "surfel_backward")
+
+
+@dataclass(frozen=True)
+class Route:
+    """One compositing route as this script drives it: its two kernels
+    (names, wrappers, plain versions, operation counts), the rows of an
+    instance's table column and of its backward output besides its nch
+    channel rows, the tile rows the backward reads besides 2 nch, and how
+    a frame's inputs, binning radii, table and gradient reduce are made.
+    Both routes share the tile layout (channels from row 0, the
+    transmittance in row 7, and its cotangent there)."""
+    forward: str
+    backward: str
+    fwd: Callable
+    fwd_plain: Callable
+    bwd: Callable
+    bwd_plain: Callable
+    forward_atol: float
+    fwd_ops: Callable
+    bwd_ops: Callable
+    inst_rows: int
+    grad_rows: int
+    tile_rows: int
+    inputs: Callable          # (params, cam, geometry) -> proj, colors, opac
+    prep_args: Callable       # (proj, opac) -> binning inputs
+    table_inputs: Callable    # (proj, colors, opac) -> what the table holds
+    build_table: Callable     # (*table_inputs, inst) -> table
+    reduce: Callable          # (grads, bins, nch) -> grads of table_inputs
+    render: Callable          # (params, cam, icap, geometry, **bkw) -> out
+
+
+def _gauss_reduce(grads, bins, nch):
+    red = B.reduce_grads_sorted(grads, bins, nch=nch)
+    return [red["means2d"], red["conics"], red["colors"], red["opacity"]]
+
+
+def _surfel_reduce(grads, bins, nch):
+    seg = B.segment_rows_sorted(grads, bins, range(SR.ngrad_rows(nch)))
+    return [seg[0:9].T.reshape(-1, 3, 3), seg[SR.ROW_ZP:SR.ROW_ZP + 3].T,
+            seg[SR.ROW_C2D:SR.ROW_C2D + 2].T, seg[SR.ROW_OP],
+            seg[SR.ROW_CH:SR.ROW_CH + nch].T]
+
+
+GAUSS = Route(
+    "forward", "backward", R.rasterize_forward, R.rasterize_forward_plain,
+    R.rasterize_backward, R.rasterize_backward_plain, FORWARD_ATOL,
+    forward_ops, backward_ops, 6, 9, 2,
+    inputs=lambda params, cam, geometry: frame_inputs(params, cam),
+    prep_args=lambda pr, opac: (pr.means2d, pr.depths, pr.radii,
+                                pr.radii_xy, pr.rad2),
+    table_inputs=lambda pr, colors, opac: [pr.means2d, pr.conics, colors,
+                                           opac],
+    build_table=R.build_feature_table, reduce=_gauss_reduce,
+    render=lambda params, cam, icap, geometry, **bkw: render(
+        params, cam, instance_capacity=icap, **bkw))
+SURFEL = Route(
+    "surfel_forward", "surfel_backward", SR.surfel_forward,
+    SR.surfel_forward_plain, SR.surfel_backward, SR.surfel_backward_plain,
+    0.0, surfel_forward_ops, surfel_backward_ops, 15, 20, 4,
+    inputs=lambda params, cam, geometry: SR.surfel_inputs(
+        params, cam, with_geometry=geometry),
+    prep_args=lambda pr, opac: (pr["center2d"], pr["depths"],
+                                SR.bin_radii(pr["radii"], opac), None, None),
+    table_inputs=lambda pr, colors, opac: [pr["Tmat"], pr["zplane"],
+                                           pr["center2d"], opac, colors],
+    build_table=SR.build_surfel_table, reduce=_surfel_reduce,
+    render=lambda params, cam, icap, geometry, **bkw: SR.render_surfels(
+        params, cam, instance_capacity=icap, with_geometry=geometry))
 
 
 @dataclass(frozen=True)
@@ -135,12 +253,13 @@ class Scale:
     train_views: int
     train_iters: int
     demo_iters: int       # steps of apps.train --demo (0: not run)
+    bars2d_iters: int     # steps of the 2DGS loss bar
 
 
 FULL = Scale(1920, 1080, 4, 1, 1_000_000, 1 << 24, 50_000, 512, 10,
-             150, 50_000, 100_000, 1 << 17, 800, 4, 30, 20)
+             150, 50_000, 100_000, 1 << 17, 800, 4, 30, 20, 60)
 TINY = Scale(64, 48, 1, 512, 1_500, 1 << 16, 400, 64, 1,
-             3, 300, 500, 1 << 10, 64, 2, 2, 0)
+             3, 300, 500, 1 << 10, 64, 2, 2, 0, 3)
 
 
 def log(msg: str) -> None:
@@ -235,48 +354,82 @@ def check_expand(p: B.Prep, cap: int, width: int, height: int) -> dict:
             "max_abs_err": 0.0}
 
 
-def check_forward(table, tile_start, width: int, height: int,
-                  nch: int = 3):
-    """Forward kernel vs plain version -> (max abs err, the data's
-    ``R.PairCounts``, instances the data needs read: per tile, up to its
-    last pixel's stop)."""
-    out_k = R.rasterize_forward(table, tile_start, width=width,
-                                height=height, nch=nch)
-    out_p, counts, reach = R.rasterize_forward_plain(
-        table, tile_start, width=width, height=height, nch=nch,
-        count_pairs=True)
+def check_forward(route: Route, table, tile_start, width: int, height: int,
+                  nch: int):
+    """Forward kernel vs plain version, within ``route.forward_atol`` (0 for
+    the surfel forward: equal) -> (max abs err, the data's pair counts,
+    instances the data needs read: per tile, up to its last pixel's
+    stop)."""
+    kw = dict(width=width, height=height, nch=nch)
+    out_k = route.fwd(table, tile_start, **kw)
+    out_p, counts, reach = route.fwd_plain(table, tile_start,
+                                           count_pairs=True, **kw)
     err = float((out_k - out_p).abs().max())
-    if not err <= FORWARD_ATOL:
-        raise AssertionError(f"forward: max abs err {err} > {FORWARD_ATOL}")
+    if not (bool(torch.isfinite(out_k).all()) and err <= route.forward_atol):
+        raise AssertionError(f"{route.forward}: max abs err {err} > "
+                             f"{route.forward_atol}")
     return err, counts, int(reach.sum())
 
 
-def check_backward(table, tile_start, fwd, cot, width: int, height: int,
-                   nch: int, with_absgrad: bool) -> tuple[float, float]:
-    """Backward kernel vs plain version on the columns the kernel writes
-    -> (max abs err, max err relative to its row's largest magnitude).
-    npix must agree exactly, every other row within BACKWARD_RTOL of its
-    largest magnitude, and both must be finite."""
-    kw = dict(width=width, height=height, nch=nch,
-              with_absgrad=with_absgrad)
+def row_floor(grads: torch.Tensor) -> torch.Tensor:
+    """Per row, the 99th-percentile nonzero magnitude, which the top 1 % of
+    the row's columns (where edge-on surfels sit) cannot inflate."""
+    q = []
+    for row in grads.abs():
+        nz = torch.sort(row[row > 0]).values
+        q.append(nz[int(0.99 * (nz.numel() - 1))] if nz.numel()
+                 else row.new_zeros(()))
+    return torch.stack(q)
+
+
+def check_backward(route: Route, table, tile_start, fwd, cot, width: int,
+                   height: int, nch: int, **bkw) -> dict:
+    """Backward kernel vs plain version on the columns the kernel writes.
+    npix must agree exactly; every other entry within BACKWARD_RTOL of its
+    row's largest magnitude and within BACKWARD_RTOL of its own scale: the
+    larger of the sum of the magnitudes of its per-pixel terms (the plain
+    version's ``abs_sums``; an outlier column's own rounding scale) and its
+    row's ``row_floor`` (which covers entries whose terms cancel inside a
+    pixel, as d_alpha's rear sum does); all finite. -> max abs err, max
+    row-relative err (``row_rel``), per column the largest err relative to
+    the entries' scales (``scale_rel``), and the number of columns with an
+    entry above 1e3 times its row's floor (``outlier_cols``; the floors
+    stand while it is below 1 % of the columns)."""
+    kw = dict(width=width, height=height, nch=nch, **bkw)
     n = int(tile_start[-1])
-    gk = R.rasterize_backward(table, tile_start, cot, fwd, **kw)[:, :n]
-    gp = R.rasterize_backward_plain(table, tile_start, cot, fwd,
-                                    **kw)[:, :n]
+    gk = route.bwd(table, tile_start, cot, fwd, **kw)[:, :n]
+    gp, sums = route.bwd_plain(table, tile_start, cot, fwd, abs_sums=True,
+                               **kw)
+    gp, sums = gp[:, :n], sums[:, :n]
+    what = route.backward
     if not (bool(torch.isfinite(gk).all())
             and bool(torch.isfinite(gp).all())):
-        raise AssertionError("backward: non-finite gradient rows")
-    if not torch.equal(gk[8 + nch], gp[8 + nch]):
-        raise AssertionError("backward: npix differs from plain")
-    diff = (gk - gp).abs().amax(1)
-    scale = gp.abs().amax(1).clamp_min(1e-30)
-    rel = float((diff / scale).max())
-    if not rel <= BACKWARD_RTOL:
-        raise AssertionError(f"backward: row err {rel:.3e} of the row's "
+        raise AssertionError(f"{what}: non-finite gradient rows")
+    if not torch.equal(gk[-1], gp[-1]):
+        raise AssertionError(f"{what}: npix differs from plain")
+    diff = (gk - gp).abs()
+    row_rel = float((diff.amax(1) / gp.abs().amax(1).clamp_min(1e-30)).max())
+    floor = row_floor(gp)
+    scale = torch.maximum(sums, floor[:, None])
+    rel = torch.where(diff > 0, diff / scale, 0.0)
+    scale_rel = rel.amax(0)
+    worst = float(scale_rel.max()) if n else 0.0
+    if not row_rel <= BACKWARD_RTOL:
+        raise AssertionError(f"{what}: row err {row_rel:.3e} of the row's "
                              f"largest value > {BACKWARD_RTOL}")
-    if not with_absgrad and float(gk[6 + nch:8 + nch].abs().max()) != 0.0:
-        raise AssertionError("backward: absgrad rows not zero")
-    return float(diff.max()), rel
+    if not worst <= BACKWARD_RTOL:
+        r, c = divmod(int(torch.argmax(rel)), n)
+        raise AssertionError(
+            f"{what}: err {worst:.3e} of the entry's scale > "
+            f"{BACKWARD_RTOL} (row {r}, column {c}: kernel "
+            f"{float(gk[r, c])}, plain {float(gp[r, c])}, terms "
+            f"{float(sums[r, c])}, scale {float(scale[r, c])})")
+    if bkw.get("with_absgrad") is False and float(gk[-3:-1].abs().max()):
+        raise AssertionError(f"{what}: absgrad rows not zero")
+    big = (gp.abs() > 1e3 * floor[:, None]) & (floor[:, None] > 0)
+    return dict(max_abs_err=float(diff.max()) if n else 0.0,
+                row_rel=row_rel, scale_rel=scale_rel,
+                outlier_cols=int(big.any(0).sum()))
 
 
 def _nan_prep(p: B.Prep) -> B.Prep:
@@ -300,11 +453,16 @@ def _nan_table(table: torch.Tensor, tile_start: torch.Tensor
     return t
 
 
-def _cotangent(num_tiles: int, nch: int, device, seed: int):
+def _cotangent(num_tiles: int, nch: int, device, seed: int,
+               planes: bool = False):
+    """Random cotangent tiles for the channel rows and row 7 (T), and with
+    ``planes`` rows 5 and 6 (z, z^2) at a tenth of the scale."""
     g = torch.Generator(device=device)
     g.manual_seed(seed)
     cot = torch.randn((num_tiles, 8, 256), generator=g, device=device)
-    cot[:, nch:7] = 0.0
+    cot[:, nch:SR.ROW_Z if planes else 7] = 0.0
+    if planes:
+        cot[:, SR.ROW_Z:SR.ROW_Z2 + 1] *= 0.1
     return cot
 
 
@@ -330,22 +488,26 @@ def phase_kernels_vs_plain(device: torch.device, scale: Scale) -> dict:
                              proj.radii, proj.radii_xy, proj.rad2, cols,
                              opac, width=w, height=h, instance_capacity=cap)
         table = _nan_table(sb.table, sb.tile_start)
-        fw_err, _, _ = check_forward(table, sb.tile_start, w, h, nch=nch)
+        fw_err, _, _ = check_forward(GAUSS, table, sb.tile_start, w, h, nch)
         out["forward_err"] = max(out.get("forward_err", 0.0), fw_err)
         fwd = R.rasterize_forward(table, sb.tile_start, width=w, height=h,
                                   nch=nch)
         cot = _cotangent(fwd.shape[0], nch, device, nch)
         for absgrad in (True, False):
-            err, rel = check_backward(table, sb.tile_start, fwd, cot, w, h,
-                                      nch, absgrad)
-            out[f"backward_err_nch{nch}_absgrad{int(absgrad)}"] = err
+            chk = check_backward(GAUSS, table, sb.tile_start, fwd, cot, w, h,
+                                 nch, with_absgrad=absgrad)
+            out[f"backward_err_nch{nch}_absgrad{int(absgrad)}"] = \
+                chk["max_abs_err"]
             log(f"  backward nch {nch}, absgrad {absgrad}: max abs err "
-                f"{err:.3e}, max row-relative err {rel:.3e} (tolerance "
-                f"{BACKWARD_RTOL}; npix exact)")
+                f"{chk['max_abs_err']:.3e}, max row-relative err "
+                f"{chk['row_rel']:.3e}, max err relative to the entries' "
+                f"scales {float(chk['scale_rel'].max()):.3e} (tolerance "
+                f"{BACKWARD_RTOL} each; npix exact)")
     log(f"  {scale.check_splats} splats at {w}x{h}, capacity {cap}, demand "
         f"{ex['demand']}, NaN instances in every input: expand exact "
         f"(max abs err {out['expand_err']}), forward max abs err "
         f"{out['forward_err']:.3e} (tolerance {FORWARD_ATOL})")
+    out.update(surfel_kernels_vs_plain(params, cam, device))
     return out
 
 
@@ -353,13 +515,19 @@ def phase_kernels_vs_plain(device: torch.device, scale: Scale) -> dict:
 # main path
 
 
-def _scenes(device: torch.device, scale: Scale):
-    params, _ = load_model(str(MODEL), device=device)
+def _load(path: Path, device: torch.device, scale: Scale) -> GaussianParams:
+    """A model of the repo, every ``scale.model_stride``-th splat kept."""
+    params, _ = load_model(str(path), device=device)
     if scale.model_stride > 1:
         keep = torch.arange(0, params.capacity, scale.model_stride,
                             device=device)
         params = GaussianParams(**{f: getattr(params, f)[keep] for f in (
             "means", "scales", "quats", "opacity", "sh0", "shN", "alive")})
+    return params
+
+
+def _scenes(device: torch.device, scale: Scale):
+    params = _load(MODEL, device, scale)
     model_cams = orbit_for_model(params, scale.model_views, radius=4.0,
                                  width=scale.width, height=scale.height,
                                  fov=50.0)
@@ -468,91 +636,133 @@ def _records(scene: str, rows: list[tuple], launches: dict,
 
 @dataclass
 class Frame:
-    """One view's binning and instance table, built stage by stage as
-    ``render`` builds them; ``params`` carries the leaves for autograd
-    when the frame was made with ``grad``."""
+    """One view's binning and instance table on one route, built stage by
+    stage as ``render`` or ``render_surfels`` builds them; ``params``
+    carries the leaves for autograd when the frame was made with
+    ``grad``."""
+    route: Route
     params: GaussianParams
     leaves: dict
     cam: object
     cap: int
+    nch: int
     proj: object
     colors: torch.Tensor
     opac: torch.Tensor
+    prep_args: tuple
     pp: B.Prep
     keys: torch.Tensor
     owners: torch.Tensor
-    s_owner: torch.Tensor
-    tile_start: torch.Tensor
-    perm: torch.Tensor
     inst: torch.Tensor
-    table: torch.Tensor
+    bins: B.SortedBins
+
+    @property
+    def table(self) -> torch.Tensor:
+        return self.bins.table
+
+    @property
+    def tile_start(self) -> torch.Tensor:
+        return self.bins.tile_start
 
 
-def make_frame(params: GaussianParams, cam, cap: int,
-               grad: bool = False) -> Frame:
+def _grad_leaves(params: GaussianParams):
+    """-> (params with fresh leaves that require grad, the leaves)."""
+    leaves = {f: getattr(params, f).detach().requires_grad_(True)
+              for f in ("means", "scales", "quats", "opacity", "sh0", "shN")}
+    return dataclasses.replace(params, **leaves), leaves
+
+
+def make_frame(params: GaussianParams, cam, cap: int, grad: bool = False,
+               route: Route = GAUSS, geometry: bool = True) -> Frame:
+    """The frame of ``params`` seen by ``cam`` on ``route``; the surfel
+    route's colours carry the normal's (nx, ny) with ``geometry``."""
     leaves = {}
     if grad:
-        leaves = {f: getattr(params, f).detach().requires_grad_(True)
-                  for f in ("means", "scales", "quats", "opacity", "sh0",
-                            "shN")}
-        params = dataclasses.replace(params, **leaves)
+        params, leaves = _grad_leaves(params)
     w, h = cam.width, cam.height
     num_tiles, depth_bits = B.key_bits(w, h, 16)
-    proj, colors, opac = frame_inputs(params, cam)
-    pp = B.prep(proj.means2d.detach(), proj.depths.detach(),
-                proj.radii.detach(), proj.radii_xy.detach(),
-                proj.rad2.detach(), w, h, 16, 64)
+    proj, colors, opac = route.inputs(params, cam, geometry)
+    pargs = tuple(None if x is None else x.detach()
+                  for x in route.prep_args(proj, opac))
+    pp = B.prep(*pargs, w, h, 16, 64)
     keys, owners = B.expand_instances(pp, cap, width=w, height=h)
     s_key, s_owner, tile_start, perm = B.sort_instances(
         keys, owners, num_tiles=num_tiles, depth_bits=depth_bits)
     inst = torch.where(s_key == B.CULLED_KEY, -1, s_owner)
-    table = R.build_feature_table(proj.means2d.detach(), proj.conics.detach(),
-                                  colors.detach(), opac.detach(), inst)
-    return Frame(params, leaves, cam, cap, proj, colors, opac, pp, keys,
-                 owners, s_owner, tile_start, perm, inst, table)
+    table = route.build_table(*[x.detach() for x in route.table_inputs(
+        proj, colors, opac)], inst)
+    bins = B.SortedBins(table=table, tile_start=tile_start, s_owner=s_owner,
+                        perm=perm, g_offsets=pp.offsets, g_counts=pp.counts,
+                        num_instances=pp.total,
+                        tile_counts=tile_start[1:] - tile_start[:-1])
+    return Frame(route, params, leaves, cam, cap, colors.shape[1], proj,
+                 colors, opac, pargs, pp, keys, owners, inst, bins)
 
 
-def loss_cotangent(fr: Frame, gt_img=None, ssim_weight: float = 0.2):
-    """The cotangent tiles that the training loss against ``gt_img``
-    (uint8) sends back to this frame's forward, or sum(image) without it.
-    Rows 3..6 are unused at nch 3; g_T = g_alpha - g_img . bg is 0 with no
-    alpha term and a black background."""
+def train_loss(cfg: TrainConfig, gt_img, cam, step: int):
+    """The train step's loss of a frame's (rgb, alpha, planes): the
+    photometric loss against ``gt_img`` (uint8), and the geometry terms
+    when the frame has the planes."""
+    hyp = hypers_from_config(cfg)
+
+    def loss(rgb, alpha, planes):
+        out = photometric_loss(rgb, gt_img.float() / 255.0,
+                               hyp["ssim_weight"])
+        if planes is not None:
+            out = out + geometry_loss(cfg, planes, alpha, cam, step, hyp)
+        return out
+    return loss
+
+
+def sum_loss(rgb, alpha, planes):
+    """sum(image), plus a hundredth of the planes' sum when there are
+    planes."""
+    return rgb.sum() + (0.0 if planes is None else 0.01 * planes.sum())
+
+
+def loss_cotangent(fr: Frame, loss_fn) -> torch.Tensor:
+    """The cotangent tiles that ``loss_fn(rgb, alpha, planes)`` sends back
+    to this frame's forward (black background); ``planes`` is the surfel
+    route's [z, z^2, nx, ny] at nch 5, else None."""
     w, h = fr.cam.width, fr.cam.height
-    fwd = R.rasterize_forward(fr.table, fr.tile_start, width=w, height=h)
-    tiles_x, tiles_y = R._grid(w, h, 16)
-    img = R._tiles_to_image(fwd[:, :3], tiles_x, tiles_y, 16, w, h)
-    img = img.detach().requires_grad_(True)
-    if gt_img is None:
-        g_img = torch.ones_like(img)
-    else:
-        g_img, = torch.autograd.grad(photometric_loss(
-            img, gt_img.float() / 255.0, ssim_weight), img)
-    cot_img = torch.cat([g_img, g_img.new_zeros((h, w, 5))], -1)
-    return R._image_to_tiles(cot_img, tiles_x, tiles_y, 16).contiguous()
+    out = fr.route.fwd(fr.table, fr.tile_start, width=w, height=h,
+                       nch=fr.nch)
+    bg = torch.zeros((3,), device=out.device)
+    rgb, t_px, extra = SR.split_surfel_tiles(out, bg, w, h, 16, fr.nch)
+    leaves = [x.detach().requires_grad_(True) for x in (rgb, 1.0 - t_px,
+                                                        extra)]
+    with_planes = fr.route is SURFEL and fr.nch == SR.MAX_CH
+    loss = loss_fn(*leaves[:2], leaves[2] if with_planes else None)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    g_rgb, g_alpha, g_extra = (torch.zeros_like(x) if g is None else g
+                               for x, g in zip(leaves, grads))
+    return SR.surfel_cotangent(g_rgb, g_alpha, g_extra, bg, fr.nch)
 
 
 def kernel_records(scene: str, fr: Frame, device: torch.device,
                    scale: Scale, launches: dict, *, cot=None,
-                   with_absgrad: bool = False,
-                   per_step: int | None = None) -> list[dict]:
-    """Each kernel against its plain version at this frame's shapes, with
-    its time, the plain version's time and its bound: expand and forward,
-    and the backward on the cotangent tiles ``cot`` when given. One record
-    per kernel, tagged with the scene."""
+                   per_step: int | None = None, **bkw) -> list[dict]:
+    """Expand and the route's kernels against their plain versions at this
+    frame's shapes, with their times, the plain versions' times and their
+    bounds: expand and forward, and the backward (with ``bkw``) on the
+    cotangent tiles ``cot`` when given. One record per kernel, tagged with
+    the scene."""
+    route, nch = fr.route, fr.nch
     w, h = fr.cam.width, fr.cam.height
     cap, table, tile_start = fr.cap, fr.table, fr.tile_start
+    kw = dict(width=w, height=h, nch=nch)
     it = scale.timing_iters * 5
     ex = check_expand(fr.pp, cap, w, h)
-    fw_err, counts, reads = check_forward(table, tile_start, w, h)
+    fw_err, counts, reads = check_forward(route, table, tile_start, w, h,
+                                          nch)
     n = fr.pp.u.shape[0]
     owning = int((fr.pp.counts > 0).sum())    # gaussians with instances
     kept = int(tile_start[-1])
     num_tiles = tile_start.shape[0] - 1
-    nch = table.shape[0] - 6
     tile_bytes = num_tiles * 256 * 4          # one row of a (T, 8, 256)
     # the instance rows this data needs read (each tile up to its last
     # pixel's stop) and the tile ranges
-    read_bytes = reads * table.shape[0] * 4 + (num_tiles + 1) * 4
+    read_bytes = reads * (route.inst_rows + nch) * 4 + (num_tiles + 1) * 4
     rows = [
         ("expand", ex["max_abs_err"],
          time_ms(lambda: B.expand_instances(fr.pp, cap, width=w, height=h),
@@ -562,107 +772,104 @@ def kernel_records(scene: str, fr: Frame, device: torch.device,
          # the 9 fields of each gaussian that owns instances, and every
          # slot's key and owner
          owning * 9 * 4 + cap * 8, 0),
-        ("forward", fw_err,
-         time_ms(lambda: R.rasterize_forward(table, tile_start, width=w,
-                                             height=h), device, it),
-         time_ms(lambda: R.rasterize_forward_plain(
-             table, tile_start, width=w, height=h), device, 1, warmup=0),
-         read_bytes + 8 * tile_bytes, forward_ops(counts, nch)),
+        (route.forward, fw_err,
+         time_ms(lambda: route.fwd(table, tile_start, **kw), device, it),
+         time_ms(lambda: route.fwd_plain(table, tile_start, **kw), device, 1,
+                 warmup=0),
+         read_bytes + 8 * tile_bytes, route.fwd_ops(counts, nch)),
     ]
     if cot is not None:
-        fwd = R.rasterize_forward(table, tile_start, width=w, height=h)
-        bw_err, bw_rel = check_backward(table, tile_start, fwd, cot, w, h,
-                                        nch, with_absgrad)
-        kw = dict(width=w, height=h, with_absgrad=with_absgrad)
-        # it reads nch channel rows and row 7 of the cotangent and forward
-        # tiles, and writes the 9 + nch rows of every kept instance
+        fwd = route.fwd(table, tile_start, **kw)
+        chk = check_backward(route, table, tile_start, fwd, cot, w, h, nch,
+                             **bkw)
+        # it reads nch + tile_rows / 2 rows of the cotangent and forward
+        # tiles each, and writes the rows of every kept instance
         rows.append((
-            "backward", bw_err,
-            time_ms(lambda: R.rasterize_backward(table, tile_start, cot,
-                                                 fwd, **kw), device, it),
-            time_ms(lambda: R.rasterize_backward_plain(
-                table, tile_start, cot, fwd, **kw), device, 1, warmup=0),
-            read_bytes + 2 * (nch + 1) * tile_bytes + kept * (9 + nch) * 4,
-            backward_ops(counts, nch, with_absgrad),
-            {"max_rel_err": bw_rel, "with_absgrad": with_absgrad}))
+            route.backward, chk["max_abs_err"],
+            time_ms(lambda: route.bwd(table, tile_start, cot, fwd, **kw,
+                                      **bkw), device, it),
+            time_ms(lambda: route.bwd_plain(table, tile_start, cot, fwd,
+                                            **kw, **bkw),
+                    device, 1, warmup=0),
+            read_bytes + (2 * nch + route.tile_rows) * tile_bytes
+            + kept * (route.grad_rows + nch) * 4,
+            route.bwd_ops(counts, nch, **bkw),
+            {"max_rel_err": chk["row_rel"],
+             "max_scale_rel_err": float(chk["scale_rel"].max()),
+             "outlier_cols": chk["outlier_cols"], "nch": nch, **bkw}))
     recs = _records(scene, rows, launches, per_step)
-    log(f"  {scene} kernels at {w}x{h}, {n} splats ({owning} with "
-        f"instances), capacity {cap}, "
-        f"demand {ex['demand']}, {kept} instances kept, {reads} read, "
-        f"pairs {counts._asdict()}: " + "; ".join(
+    log(f"  {scene} kernels at {w}x{h}, nch {nch}, {n} splats ({owning} "
+        f"with instances), capacity {cap}, demand {ex['demand']}, {kept} "
+        f"instances kept, {reads} read, pairs {counts._asdict()}: "
+        + "; ".join(
             f"{r['name']} {r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms, "
             f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}, err "
             f"{r['max_abs_err']:.3e}, launches {r['launches']})"
+            + (f", err relative to row max {r['max_rel_err']:.3e} and to "
+               f"the entries' scales {r['max_scale_rel_err']:.3e} "
+               f"({r['outlier_cols']} of {kept} columns above 1e3 times "
+               f"their row's floor)" if "max_rel_err" in r else "")
             for r in recs))
     return recs
 
 
 def stage_times(fr: Frame, device: torch.device, scale: Scale,
-                recs: list[dict], cot=None,
-                with_absgrad: bool = False) -> dict:
+                recs: list[dict], cot=None, loss_fn=sum_loss,
+                **bkw) -> dict:
     """Mean ms of each stage of one full frame, each timed alone on its own
     inputs; the kernels' times are those of ``recs``. With ``cot``, also
     the stages of the backward: the backward kernel, the reduce, autograd
-    through projection and SH, and one whole ``render`` forward +
-    backward (``fr`` must then be made with ``grad``)."""
+    through projection and SH, and one whole render forward + backward of
+    ``loss_fn`` (``fr`` must then be made with ``grad``)."""
+    route = fr.route
     w, h = fr.cam.width, fr.cam.height
     num_tiles, depth_bits = B.key_bits(w, h, 16)
-    proj = fr.proj
-    m2d, con, col, op = (x.detach() for x in (proj.means2d, proj.conics,
-                                               fr.colors, fr.opac))
+    geometry = fr.nch == SR.MAX_CH
+    tins = [x.detach() for x in route.table_inputs(fr.proj, fr.colors,
+                                                   fr.opac)]
     kernel_ms = {r["name"]: r["ms"] for r in recs}
     stages = {
-        "project+sh": lambda: frame_inputs(fr.params, fr.cam),
-        "prep": lambda: B.prep(m2d, proj.depths.detach(),
-                               proj.radii.detach(), proj.radii_xy.detach(),
-                               proj.rad2.detach(), w, h, 16, 64),
+        "project+sh": lambda: route.inputs(fr.params, fr.cam, geometry),
+        "prep": lambda: B.prep(*fr.prep_args, w, h, 16, 64),
         "expand": kernel_ms["expand"],
         "sort+ranges": lambda: B.sort_instances(
             fr.keys, fr.owners, num_tiles=num_tiles, depth_bits=depth_bits),
-        "gather": lambda: R.build_feature_table(m2d, con, col, op, fr.inst),
-        "forward": kernel_ms["forward"],
+        "table": lambda: route.build_table(*tins, fr.inst),
+        route.forward: kernel_ms[route.forward],
     }
     if cot is not None:
-        fwd = R.rasterize_forward(fr.table, fr.tile_start, width=w,
-                                  height=h)
-        grads = R.rasterize_backward(fr.table, fr.tile_start, cot, fwd,
-                                     width=w, height=h,
-                                     with_absgrad=with_absgrad)
-        sb = B.SortedBins(table=fr.table, tile_start=fr.tile_start,
-                          s_owner=fr.s_owner, perm=fr.perm,
-                          g_offsets=fr.pp.offsets, g_counts=fr.pp.counts,
-                          num_instances=fr.pp.total,
-                          tile_counts=fr.tile_start[1:] - fr.tile_start[:-1])
-        red = B.reduce_grads_sorted(grads, sb, nch=3)
-        gouts = [red["means2d"], red["conics"], red["colors"],
-                 red["opacity"]]
+        fwd = route.fwd(fr.table, fr.tile_start, width=w, height=h,
+                        nch=fr.nch)
+        grads = route.bwd(fr.table, fr.tile_start, cot, fwd, width=w,
+                          height=h, nch=fr.nch, **bkw)
+        gouts = route.reduce(grads, fr.bins, fr.nch)
 
         def project_backward():
-            p2, c2, o2 = frame_inputs(fr.params, fr.cam)
-            torch.autograd.grad([p2.means2d, p2.conics, c2, o2],
-                                list(fr.leaves.values()), gouts,
+            outs = route.table_inputs(*route.inputs(fr.params, fr.cam,
+                                                    geometry))
+            torch.autograd.grad(outs, list(fr.leaves.values()), gouts,
                                 allow_unused=True)
 
         stages.update({
-            "backward": kernel_ms["backward"],
-            "reduce": lambda: B.reduce_grads_sorted(grads, sb, nch=3),
+            route.backward: kernel_ms[route.backward],
+            "reduce": lambda: route.reduce(grads, fr.bins, fr.nch),
             "autograd project+sh": project_backward,
             "whole render fwd+bwd": lambda: render_forward_backward(
-                fr.params, fr.cam, fr.cap, with_absgrad),
+                route, fr.params, fr.cam, fr.cap, geometry, loss_fn, **bkw),
         })
     return {k: v if isinstance(v, float) else time_ms(
         v, device, scale.timing_iters) for k, v in stages.items()}
 
 
-def render_forward_backward(params: GaussianParams, cam, icap: int,
-                            with_absgrad: bool = False):
-    """One ``render`` and the gradient of sum(image) with respect to every
-    parameter field."""
-    leaves = {f: getattr(params, f).detach().requires_grad_(True)
-              for f in ("means", "scales", "quats", "opacity", "sh0", "shN")}
-    out = render(dataclasses.replace(params, **leaves), cam,
-                 instance_capacity=icap, with_absgrad=with_absgrad)
-    return out, torch.autograd.grad(out.image.sum(), list(leaves.values()),
+def render_forward_backward(route: Route, params: GaussianParams, cam,
+                            icap: int, geometry: bool = True,
+                            loss_fn=sum_loss, **bkw):
+    """One render on ``route`` and the gradient of ``loss_fn(image, alpha,
+    planes)`` with respect to every parameter field."""
+    params, leaves = _grad_leaves(params)
+    out = route.render(params, cam, icap, geometry, **bkw)
+    loss = loss_fn(out.image, out.alpha, out.extra)
+    return out, torch.autograd.grad(loss, list(leaves.values()),
                                     allow_unused=True)
 
 
@@ -671,12 +878,12 @@ def render_forward_backward(params: GaussianParams, cam, icap: int,
 
 
 def count_launches(fn, device: torch.device, steps: int, what: str,
-                   only_steps: bool = True):
+                   only_steps: bool = True, kernels=TRAIN_KERNELS):
     """Run ``fn()`` with every launch count set to 0 just before and read
-    just after -> (its result, the counts). On a card every kernel of the
-    training path must have been launched. With ``only_steps`` (``fn``
-    launches nothing but its ``steps`` train steps) the launches per step
-    are printed too."""
+    just after -> (its result, the counts). On a card each of ``kernels``
+    (those of the training path it drives) must have been launched. With
+    ``only_steps`` (``fn`` launches nothing but its ``steps`` train steps)
+    the launches per step are printed too."""
     sync(device)
     _build.reset_launches()
     out = fn()
@@ -684,10 +891,10 @@ def count_launches(fn, device: torch.device, steps: int, what: str,
     launches = dict(_build.LAUNCHES)
     log(f"  {what}: launches over {steps} steps {launches}" + (
         ", per step " + ", ".join(f"{k} {launches[k] / steps:.3f}"
-                                  for k in TRAIN_KERNELS)
+                                  for k in kernels)
         if only_steps else ""))
     if device.type == "cuda":
-        for k in TRAIN_KERNELS:
+        for k in kernels:
             if launches[k] <= 0:
                 raise AssertionError(f"kernel {k} was not launched on the "
                                      f"training path ({what})")
@@ -696,15 +903,19 @@ def count_launches(fn, device: torch.device, steps: int, what: str,
 
 def trainer_records(scene: str, tr: Trainer, device: torch.device,
                     scale: Scale, launches: dict, steps: int) -> list[dict]:
-    """The three kernels against their plain versions on view 0 of a
-    trainer's dataset, at its trained state and instance capacity, with
-    the cotangent of its loss and its AbsGS setting."""
+    """The kernels of a trainer's route against their plain versions on
+    view 0 of its dataset, at its trained state and instance capacity,
+    with the cotangent of its loss (and its AbsGS setting)."""
     ds = tr.dataset
-    with_absgrad = render_kwargs_from_config(tr.cfg)["with_absgrad"]
-    fr = make_frame(tr.state.params, ds.cameras[0], tr.instance_capacity)
-    cot = loss_cotangent(fr, ds.images[0], tr.cfg.ssim_weight)
+    rk = render_kwargs_from_config(tr.cfg)
+    surfel = rk["backend"] == "surfel_pallas"
+    fr = make_frame(tr.state.params, ds.cameras[0], tr.instance_capacity,
+                    route=SURFEL if surfel else GAUSS)
+    cot = loss_cotangent(fr, train_loss(tr.cfg, ds.images[0], fr.cam,
+                                        tr.state.step))
+    bkw = {} if surfel else {"with_absgrad": rk["with_absgrad"]}
     return kernel_records(scene, fr, device, scale, launches, cot=cot,
-                          with_absgrad=with_absgrad, per_step=steps)
+                          per_step=steps, **bkw)
 
 
 def small_setup(rng, strategy, device, n_gt=400, capacity=1200, res=64,
@@ -728,52 +939,68 @@ def small_setup(rng, strategy, device, n_gt=400, capacity=1200, res=64,
     return cfg, ds, params
 
 
-def train_bars(device: torch.device, scale: Scale) -> list[dict]:
-    """(a) The bars of tests/test_train.py:48-68: mean loss of the last 10
-    steps below 0.6x the first 10 (ADC+) and 0.7x (MCMC); each run's launch
-    counts, and the kernels against their plain versions on its view 0."""
+# the loss bars, as (name, strategy, bar, small-setup arguments, config
+# fields, densify fields): tests/test_train.py:48-68 (3DGS) and :103-113
+# (2DGS surfels with the normal-consistency loss from step 0)
+BARS_3DGS = (("adc+", DensifyStrategy.ADC_PLUS, 0.6, {}, {},
+              {"revised_opacity": True}),
+             ("mcmc", DensifyStrategy.MCMC, 0.7, {}, {}, {"cap_max": 800}))
+BARS_2DGS = (("2dgs", DensifyStrategy.ADC_PLUS, 1.0,
+              {"res": 48, "n_views": 6},
+              {"model_type": 1, "normal_consistency_loss": True,
+               "normal_start_iter": 0}, {}),)
+
+
+def train_bars(device: torch.device, scale: Scale, cases=BARS_3DGS,
+               iters: int | None = None, full_iters: int = 150,
+               kernels=TRAIN_KERNELS) -> list[dict]:
+    """(a) Loss bars: the mean loss of the last 10 steps below ``bar``
+    times the first 10 (checked when the run has its full ``full_iters``
+    steps); each run's launch counts, and its kernels against their plain
+    versions on its view 0."""
+    iters = scale.bars_iters if iters is None else iters
     records = []
-    for name, strategy, bar in (("adc+", DensifyStrategy.ADC_PLUS, 0.6),
-                                ("mcmc", DensifyStrategy.MCMC, 0.7)):
+    for name, strategy, bar, setup_kw, cfg_kw, densify_kw in cases:
         cfg, ds, params = small_setup(np.random.default_rng(0), strategy,
-                                      device)
-        if strategy == DensifyStrategy.ADC_PLUS:
-            cfg.densify.revised_opacity = True
-        else:
-            cfg.densify.cap_max = 800
+                                      device, **setup_kw)
+        cfg = cfg.replace(**cfg_kw)
+        for k, v in densify_kw.items():
+            setattr(cfg.densify, k, v)
         tr = Trainer(cfg, ds, params,
                      render_kwargs={"instance_capacity": 1 << 15})
         losses = []
         t0 = time.perf_counter()
         _, launches = count_launches(
-            lambda: tr.run(scale.bars_iters, log_every=0,
+            lambda: tr.run(iters, log_every=0,
                            callback=lambda i, st, m: losses.append(
                                m["loss"])),
-            device, scale.bars_iters, f"(a) {name}")
+            device, iters, f"(a) {name}", kernels=kernels)
         losses = torch.stack(losses).cpu().numpy()
         dt = time.perf_counter() - t0
         first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
         alive = int(tr.state.params.alive.sum())
-        log(f"  (a) {name}: {scale.bars_iters} steps in {dt:.2f} s, loss "
+        log(f"  (a) {name}: {iters} steps in {dt:.2f} s, loss "
             f"first-10 {first:.5f} last-10 {last:.5f} (ratio "
             f"{last / first:.4f}, bar {bar}), alive {alive}")
         if not np.isfinite(losses).all():
             raise AssertionError(f"{name}: non-finite loss")
-        if scale.bars_iters >= 150 and not last < bar * first:
+        if iters >= full_iters and not last < bar * first:
             raise AssertionError(f"{name}: loss ratio {last / first:.4f} "
                                  f"misses the bar {bar}")
         recs = trainer_records(f"bars_{name}_{ds.cameras[0].width}", tr,
-                               device, scale, launches, scale.bars_iters)
+                               device, scale, launches, iters)
         for r in recs:
             r.update(loss_ratio=last / first, bar=bar)
         records += recs
     return records
 
 
-def _bench_setup(device: torch.device, scale: Scale):
+def _bench_setup(device: torch.device, scale: Scale, model_type: int = 0):
     """The JAX bench's primary training configuration (bench.py:81-143):
     GT from a 50K-splat random scene, a fresh 100K-splat random model at
-    capacity 2^17, SH 3, orbit views, the default (MCMC) strategy."""
+    capacity 2^17, SH 3, orbit views, the default (MCMC) strategy; with
+    ``model_type=1`` the same scene trained as exact 2DGS surfels with the
+    normal-consistency loss from step 0."""
     rng = np.random.default_rng(0)
     sr = (0.004, 0.025)
     gt = random_scene(rng, min(scale.train_splats, scale.train_gt),
@@ -785,19 +1012,24 @@ def _bench_setup(device: torch.device, scale: Scale):
     params = random_scene(rng, scale.train_splats, sh_degree=3,
                           capacity=scale.train_capacity, scale_range=sr,
                           device=device)
-    cfg = TrainConfig(sh_degree=3)
+    cfg = TrainConfig(sh_degree=3, model_type=model_type)
+    if model_type == 1:
+        cfg.normal_start_iter = 0
     cfg.densify.cap_max = scale.train_capacity
     cfg.densify.refine_every = 100
     cfg.densify.warmup_length = 500
     return cfg, ds, params
 
 
-def train_bench(device: torch.device, scale: Scale) -> dict:
+def train_bench(device: torch.device, scale: Scale,
+                model_type: int = 0) -> dict:
     """(b) Warm-up, then ``train_iters`` steps timed with CUDA events; the
     instance capacity is sized from the demand the first step measures,
     by the trainer's policy. The kernel launch counts are those of the
     warm-up and the timed steps."""
-    cfg, ds, params = _bench_setup(device, scale)
+    cfg, ds, params = _bench_setup(device, scale, model_type)
+    kernels, what = ((SURFEL_KERNELS, "(b) train2d bench") if model_type
+                     else (TRAIN_KERNELS, "(b) bench"))
 
     def fresh(icap):
         step = make_train_step(cfg, ds, {"instance_capacity": icap})
@@ -831,14 +1063,15 @@ def train_bench(device: torch.device, scale: Scale) -> dict:
             return losses, start.elapsed_time(end) / 1e3
         return losses, time.perf_counter() - t0
 
-    (losses, secs), launches = count_launches(run, device, steps,
-                                              "(b) bench")
+    (losses, secs), launches = count_launches(run, device, steps, what,
+                                              kernels=kernels)
     losses = torch.stack(losses).cpu().numpy()
     its = scale.train_iters / secs
     busy = device_busy(lambda: step_fn(state, 0), device, ds.num_views)
-    log(f"  (b) {scale.train_splats} splats (capacity "
+    log(f"  {what}: {scale.train_splats} splats (capacity "
         f"{scale.train_capacity}), SH 3, {ds.num_views} views at "
-        f"{scale.train_res}x{scale.train_res}, MCMC: demand {demand}, "
+        f"{scale.train_res}x{scale.train_res}, MCMC, model_type "
+        f"{model_type}: demand {demand}, "
         f"instance capacity {icap}; {scale.train_iters} timed steps in "
         f"{secs:.4f} s = {its:.3f} it/s; loss first {losses[0]:.6f} last "
         f"{losses[-1]:.6f}")
@@ -852,6 +1085,7 @@ def train_bench(device: torch.device, scale: Scale) -> dict:
             raise AssertionError(f"bench: the loss did not fall (mean over "
                                  f"the views {first:.6f} -> {last:.6f})")
     return dict(params=state.params, cams=ds.cameras, images=ds.images,
+                cfg=cfg, step=state.step,
                 icap=icap, demand=demand, its=its, launches=launches,
                 steps=steps, loss_first=float(losses[0]),
                 loss_last=float(losses[-1]), device_busy=busy)
@@ -898,15 +1132,17 @@ def device_busy(fn, device: torch.device, iters: int) -> float | None:
     return total / wall_us
 
 
-def train_demo(device: torch.device, scale: Scale) -> list[dict]:
+def train_demo(device: torch.device, scale: Scale, flags=(),
+               label: str = "demo", kernels=TRAIN_KERNELS) -> list[dict]:
     """(d) A few steps of ``python -m divshot_tpu_torch.apps.train
-    --demo``, in this process, its output echoed; then the kernels against
-    their plain versions on the demo's view 0. The launch counts are those
-    of the whole app run, ground-truth renders included; the launches per
-    step are counted over the steps after the first."""
+    --demo`` with ``flags``, in this process, its output echoed; then the
+    kernels of its route against their plain versions on the demo's view
+    0. The launch counts are those of the whole app run, ground-truth
+    renders included; the launches per step are counted over the steps
+    after the first."""
     buf = io.StringIO()
     argv = ["--demo", "--iterations", str(scale.demo_iters), "--device",
-            device.type]
+            device.type, *flags]
     after_first = {}
 
     def step_done(i, state, m):
@@ -918,7 +1154,8 @@ def train_demo(device: torch.device, scale: Scale) -> list[dict]:
             return train_app.run(argv, callback=step_done)
 
     tr, launches = count_launches(run, device, scale.demo_iters,
-                                  "(d) demo app run", only_steps=False)
+                                  f"(d) {label} app run", only_steps=False,
+                                  kernels=kernels)
     for line in buf.getvalue().splitlines():
         log(f"  (d) {line}")
     if tr is None:
@@ -929,34 +1166,45 @@ def train_demo(device: torch.device, scale: Scale) -> list[dict]:
         raise AssertionError("apps.train --demo: non-finite loss")
     steps = scale.demo_iters - 1
     per_step = {k: (launches[k] - after_first[k]) / max(steps, 1)
-                for k in TRAIN_KERNELS}
-    log(f"  (d) demo: launches per step over steps 2..{scale.demo_iters}: "
+                for k in kernels}
+    log(f"  (d) {label}: launches per step over steps 2.."
+        f"{scale.demo_iters}: "
         + ", ".join(f"{k} {v:.3f}" for k, v in per_step.items()))
-    recs = trainer_records(f"demo_{tr.dataset.cameras[0].width}", tr,
+    recs = trainer_records(f"{label}_{tr.dataset.cameras[0].width}", tr,
                            device, scale, launches, scale.demo_iters)
     for r in recs:
         r["launches_per_step"] = per_step[r["name"]]
     return recs
 
 
-def phase_training(device: torch.device, scale: Scale) -> list[dict]:
-    records = train_bars(device, scale)
-    bench = train_bench(device, scale)
+def bench_records(scene: str, bench: dict, route: Route,
+                  device: torch.device, scale: Scale, **bkw) -> list[dict]:
+    """(b) The kernels of a bench run's route against their plain versions
+    on its view 0 at its trained state, with the cotangent of its loss,
+    and the stage breakdown of one render forward + backward there."""
     fr = make_frame(bench["params"], bench["cams"][0], bench["icap"],
-                    grad=True)
-    cot = loss_cotangent(fr, bench["images"][0])
-    recs = kernel_records(
-        f"train_{scale.train_splats}_{scale.train_res}", fr, device, scale,
-        bench["launches"], cot=cot, per_step=bench["steps"])
-    stages = stage_times(fr, device, scale, recs, cot)
-    log(f"  {scale.train_res}x{scale.train_res} render forward + backward "
-        f"stages (ms, each timed alone): "
+                    grad=True, route=route)
+    loss_fn = train_loss(bench["cfg"], bench["images"][0], fr.cam,
+                         bench["step"])
+    cot = loss_cotangent(fr, loss_fn)
+    recs = kernel_records(scene, fr, device, scale, bench["launches"],
+                          cot=cot, per_step=bench["steps"], **bkw)
+    stages = stage_times(fr, device, scale, recs, cot, loss_fn, **bkw)
+    log(f"  (b) {fr.cam.width}x{fr.cam.height} {scene} render forward + "
+        f"backward stages (ms, each timed alone): "
         + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
     for r in recs:
         r.update(it_per_s=bench["its"], loss_first=bench["loss_first"],
                  loss_last=bench["loss_last"], demand=bench["demand"],
                  icap=bench["icap"], device_busy=bench["device_busy"])
-    records += recs
+    return recs
+
+
+def phase_training(device: torch.device, scale: Scale) -> list[dict]:
+    records = train_bars(device, scale)
+    records += bench_records(f"train_{scale.train_splats}_{scale.train_res}",
+                             train_bench(device, scale), GAUSS, device,
+                             scale, with_absgrad=False)
 
     # (c) one render forward + backward at random 1M, 1920x1080
     rnd = random_scene(np.random.default_rng(0), scale.random_splats,
@@ -969,7 +1217,7 @@ def phase_training(device: torch.device, scale: Scale) -> list[dict]:
     icap = auto_icap(demand)
     sync(device)
     _build.reset_launches()
-    out, grads = render_forward_backward(rnd, cam, icap)
+    out, grads = render_forward_backward(GAUSS, rnd, cam, icap)
     sync(device)
     launches = dict(_build.LAUNCHES)
     if not all(bool(torch.isfinite(g).all()) for g in grads if g is not None):
@@ -977,10 +1225,10 @@ def phase_training(device: torch.device, scale: Scale) -> list[dict]:
     if device.type == "cuda" and launches["backward"] != 1:
         raise AssertionError(f"1M render: launches {launches}")
     fr = make_frame(rnd, cam, icap, grad=True)
-    cot = loss_cotangent(fr)
+    cot = loss_cotangent(fr, sum_loss)
     recs = kernel_records(f"random_{scale.random_splats}", fr, device,
-                          scale, launches, cot=cot)
-    stages = stage_times(fr, device, scale, recs, cot)
+                          scale, launches, cot=cot, with_absgrad=False)
+    stages = stage_times(fr, device, scale, recs, cot, with_absgrad=False)
     log(f"  {scale.width}x{scale.height} render forward + backward stages "
         f"(ms, each timed alone): "
         + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
@@ -988,6 +1236,137 @@ def phase_training(device: torch.device, scale: Scale) -> list[dict]:
 
     if scale.demo_iters:
         records += train_demo(device, scale)
+    return records
+
+
+# --------------------------------------------------------------------------
+# the exact-2DGS (surfel) kernels and training path
+
+
+def _degenerate_surfels(table, tile_start, width: int):
+    """The surfel table with NaN columns (all rows; a T entry; a zplane
+    entry; the opacity), surfels seen edge-on (p2 = 0 exactly, and two
+    nearly so with a constant depth plane, whose u overflows rho3d) and
+    three fronto-parallel surfels of opacity 1 centred on a pixel centre
+    of their tile, whose alpha clamps -> (table, the changed columns)."""
+    t = table.clone()
+    n = int(tile_start[-1])
+    cols = torch.linspace(0, n - 1, 7).long().tolist()
+    t[:, cols[0]] = float("nan")
+    t[4, cols[1]] = float("nan")
+    t[SR.ROW_ZP + 2, cols[2]] = float("nan")
+    t[SR.ROW_OP, cols[3]] = float("nan")
+    for c, eps in zip(cols[4:], (0.0, 1e-3, 1e-6)):
+        t[3:6, c] = 2.0 * t[0:3, c]
+        t[4, c] = t[4, c] * (1.0 + eps)
+        t[6:8, c] = 0.0
+        t[SR.ROW_ZP:SR.ROW_ZP + 2, c] = 0.0
+        t[SR.ROW_OP, c] = 0.9
+    starts = tile_start.tolist()
+    tiles_x = -(-width // 16)
+    full = [k for k in range(len(starts) - 1)
+            if starts[k + 1] > starts[k] and starts[k] not in cols]
+    for k in full[:: max(1, len(full) // 3)][:3]:
+        x0 = (k % tiles_x) * 16 + 3.5
+        y0 = (k // tiles_x) * 16 + 5.5
+        t[:SR.ROW_OP + 1, starts[k]] = torch.tensor(
+            [4.0, 0.0, 2.0 * x0, 0.0, 4.0, 2.0 * y0, 0.0, 0.0, 2.0,
+             0.0, 0.0, 2.0, x0, y0, 1.0], device=t.device)
+        cols.append(starts[k])
+    return t, cols
+
+
+def surfel_kernels_vs_plain(params, cam, device: torch.device) -> dict:
+    """Phase 3's surfel part: the surfel forward (exactly) and backward
+    against their plain versions at nch 3 and 5, on a table with NaN,
+    edge-on and clamping surfels; the backward's error relative to its
+    entries' scales is reported for those columns and the others
+    apart."""
+    w, h = cam.width, cam.height
+    pr, _, opac = SR.surfel_inputs(params, cam)
+    demand = int(B.prep(*SURFEL.prep_args(pr, opac), w, h, 16, 64).total)
+    cap = min(auto_icap(demand), 1 << 21)
+    out = {}
+    for nch in (3, 5):
+        fr = make_frame(params, cam, cap, route=SURFEL, geometry=nch == 5)
+        table, planted = _degenerate_surfels(fr.table, fr.tile_start, w)
+        err, counts, _ = check_forward(SURFEL, table, fr.tile_start, w, h,
+                                       nch)
+        out["surfel_forward_err"] = max(out.get("surfel_forward_err", 0.0),
+                                        err)
+        fwd = SR.surfel_forward(table, fr.tile_start, width=w, height=h,
+                                nch=nch)
+        cot = _cotangent(fwd.shape[0], nch, device, nch, planes=True)
+        chk = check_backward(SURFEL, table, fr.tile_start, fwd, cot, w, h,
+                             nch)
+        out[f"surfel_backward_err_nch{nch}"] = chk["max_abs_err"]
+        mask = torch.zeros_like(chk["scale_rel"], dtype=torch.bool)
+        mask[planted] = True
+        log(f"  surfel nch {nch}: {params.capacity} splats at {w}x{h}, "
+            f"capacity {cap}, demand {demand}, pairs {counts._asdict()}, "
+            f"NaN, edge-on and clamping surfels: forward exact, backward "
+            f"max abs err {chk['max_abs_err']:.3e}, max row-relative err "
+            f"{chk['row_rel']:.3e}, max err relative to the entries' "
+            f"scales {float(chk['scale_rel'][~mask].max()):.3e} on the "
+            f"scene's columns and {float(chk['scale_rel'][mask].max()):.3e} "
+            f"on the {len(planted)} planted ones (tolerance "
+            f"{BACKWARD_RTOL} each; npix exact; {chk['outlier_cols']} "
+            f"columns above 1e3 times their row's floor)")
+    return out
+
+
+def surfel_model_record(device: torch.device, scale: Scale) -> list[dict]:
+    """(c) The repo's trained 2DGS model (``runs/tpu_bricks_2dgs2``) as
+    exact surfels at the frame size: one ``render_surfels`` forward and
+    backward with its launch counts, the surfel kernels against their
+    plain versions and the stage breakdown."""
+    params = _load(MODEL_2DGS, device, scale)
+    cam = orbit_for_model(params, 1, radius=4.0, width=scale.width,
+                          height=scale.height, fov=50.0)[0]
+    with torch.no_grad():
+        demand = int(SR.render_surfels(
+            params, cam, instance_capacity=scale.probe_capacity
+        ).num_instances)
+    icap = auto_icap(demand)
+    sync(device)
+    _build.reset_launches()
+    out, grads = render_forward_backward(SURFEL, params, cam, icap)
+    sync(device)
+    launches = dict(_build.LAUNCHES)
+    log(f"  (c) tpu_bricks_2dgs2 render forward + backward at "
+        f"{cam.width}x{cam.height}: launches {launches}")
+    _check_frame(out.image.detach(), out.alpha.detach(), "tpu_bricks_2dgs2")
+    if not all(bool(torch.isfinite(g).all()) for g in grads if g is not None):
+        raise AssertionError("tpu_bricks_2dgs2: non-finite gradients")
+    if device.type == "cuda" and any(launches[k] != 1
+                                     for k in SURFEL_KERNELS):
+        raise AssertionError(f"tpu_bricks_2dgs2: launches {launches}")
+    fr = make_frame(params, cam, icap, grad=True, route=SURFEL)
+    cot = loss_cotangent(fr, sum_loss)
+    recs = kernel_records("tpu_bricks_2dgs2", fr, device, scale, launches,
+                          cot=cot)
+    stages = stage_times(fr, device, scale, recs, cot)
+    log(f"  (c) {cam.width}x{cam.height} surfel render forward + backward "
+        f"stages (ms, each timed alone): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+    for r in recs:
+        r.update(demand=demand, icap=icap)
+    return recs
+
+
+def phase_training_2dgs(device: torch.device, scale: Scale) -> list[dict]:
+    """The exact-2DGS training path: (a) the 2DGS loss bar, (b) the
+    train2d cell timed with its stage breakdown, (c) the trained 2DGS
+    model at the frame size, (d) ``apps.train --demo --model_type 1``."""
+    records = train_bars(device, scale, BARS_2DGS, scale.bars2d_iters, 60,
+                         SURFEL_KERNELS)
+    records += bench_records(
+        f"train2d_{scale.train_splats}_{scale.train_res}",
+        train_bench(device, scale, model_type=1), SURFEL, device, scale)
+    records += surfel_model_record(device, scale)
+    if scale.demo_iters:
+        records += train_demo(device, scale, ("--model_type", "1"),
+                              "demo2d", SURFEL_KERNELS)
     return records
 
 
@@ -1011,6 +1390,7 @@ def main() -> int:
     run("3 kernels vs plain versions", phase_kernels_vs_plain)
     records = run("4 main path", phase_main_path)
     records += run("5 training path", phase_training)
+    records += run("6 2DGS training path", phase_training_2dgs)
     log(f"all phases ok in {time.perf_counter() - t_all:.2f} s")
     print(json.dumps({"kernels": records}))
     print(ident["smi"] or f"{ident['kind']}, power limit not readable")

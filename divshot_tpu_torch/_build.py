@@ -29,7 +29,8 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "divshot_tpu_torc
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
-LAUNCHES = {"expand": 0, "forward": 0, "backward": 0}
+LAUNCHES = {"expand": 0, "forward": 0, "backward": 0, "surfel_forward": 0,
+            "surfel_backward": 0}
 
 _P = ctypes.c_void_p
 _I32 = ctypes.c_int32
@@ -39,6 +40,10 @@ _SIGNATURES = {
                         ctypes.c_float, _P, _P],
     "divshot_backward": [_P, ctypes.c_int64, _P, _I32, _I32, _I32, _I32,
                          ctypes.c_float, _I32, _P, _P, _P, _P],
+    "divshot_surfel_forward": [_P, ctypes.c_int64, _P, _I32, _I32, _I32,
+                               _I32, ctypes.c_float, _P, _P],
+    "divshot_surfel_backward": [_P, ctypes.c_int64, _P, _I32, _I32, _I32,
+                                _I32, ctypes.c_float, _P, _P, _P, _P],
 }
 
 
@@ -57,7 +62,8 @@ def _nvcc() -> str:
 
 
 def _sources() -> list[Path]:
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.h"))
+    return (sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.h"))
+            + sorted(CSRC.glob("*.cuh")))
 
 
 def library_path() -> Path:

@@ -8,10 +8,12 @@ truth splats rendered from 32 orbit views at 400 px, and a fresh model
 initialised from every fourth ground-truth centre. Progress goes to
 standard output; the app writes no file.
 
-Ported: the static-3DGS trainer with the ADC, ADC+ and MCMC strategies.
-The flags of what is not ported yet (datasets, checkpoints, evaluation,
-PLY and mesh export, 2DGS and the other options the trainer rejects)
-raise ``NotImplementedError`` naming ROADMAP.md.
+Ported: the static trainer, 3DGS and 2DGS (``--model_type 1``, exact
+surfels by default, ``--surfel_exact 0`` the flattened approximation),
+the geometry losses, and the ADC, ADC+ and MCMC strategies. The flags of
+what is not ported yet (datasets, checkpoints, evaluation, PLY and mesh
+export and the other options the trainer rejects) raise
+``NotImplementedError`` naming ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -21,6 +23,12 @@ import sys
 import time
 
 import numpy as np
+
+# the --demo scene, as in the JAX app: ground-truth splats, orbit views and
+# their width in pixels
+DEMO_SPLATS = 20_000
+DEMO_VIEWS = 32
+DEMO_WIDTH = 400
 
 # flags of the JAX app whose features are not ported, as (config field,
 # what it needs)
@@ -37,7 +45,6 @@ _UNPORTED_FIELDS = (
     ("eval_every", "evaluation"),
     ("export_mesh", "mesh export"),
     ("mesh_resolution", "mesh export"),
-    ("surfel_exact", "2DGS"),
 )
 
 
@@ -83,9 +90,9 @@ def run(argv=None, callback=None):
 
     t0 = time.perf_counter()
     rng = np.random.default_rng(cfg.seed)
-    gt = random_scene(rng, 20_000, sh_degree=cfg.sh_degree,
+    gt = random_scene(rng, DEMO_SPLATS, sh_degree=cfg.sh_degree,
                       scale_range=(0.004, 0.03), device=device)
-    cams = orbit_cameras(32, width=400, device=device)
+    cams = orbit_cameras(DEMO_VIEWS, width=DEMO_WIDTH, device=device)
     bg = [1.0, 1.0, 1.0] if cfg.white_background else None
     images = render_gt_images(gt, cams, background=bg,
                               instance_capacity=1 << 19)

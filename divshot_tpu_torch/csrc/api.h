@@ -36,6 +36,22 @@ int divshot_backward(const float* table, int64_t num_instances,
                      float t_eps, int32_t absgrad, const float* cot,
                      const float* fwd, float* grads, void* stream);
 
+// Exact-2DGS (surfel) ray-splat compositing of depth-sorted instances per
+// tile -> (T, 8, px): channels, z, z^2, T: see surfel_forward.cu.
+int divshot_surfel_forward(const float* table, int64_t num_instances,
+                           const int32_t* tile_start, int32_t num_tiles,
+                           int32_t tiles_x, int32_t tile_size, int32_t nch,
+                           float t_eps, float* out, void* stream);
+
+// The VJP of divshot_surfel_forward: per-instance rows
+// [dT(9) dzp(3) dc2d(2) dop dch.. ds_x ds_y |ds_x| |ds_y| npix] of shape
+// (20 + nch, I): see surfel_backward.cu.
+int divshot_surfel_backward(const float* table, int64_t num_instances,
+                            const int32_t* tile_start, int32_t num_tiles,
+                            int32_t tiles_x, int32_t tile_size, int32_t nch,
+                            float t_eps, const float* cot, const float* fwd,
+                            float* grads, void* stream);
+
 #ifdef __cplusplus
 }
 #endif

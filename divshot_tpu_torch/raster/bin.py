@@ -5,10 +5,12 @@
 (capped at ``mt``) and exclusive offset, and its depth-key bits.
 ``expand_instances`` is the wrapper of the CUDA expand kernel
 (``csrc/expand.cu``): it writes one 32-bit (tile | depth) key and one owner
-per instance slot. ``expand_sorted`` sorts the keys, builds the feature
-table and the per-tile ranges, as the JAX function does after its Pallas
-call. ``reduce_grads_sorted`` sums the backward kernel's per-instance
-gradient rows back to per-gaussian gradients, without float atomics.
+per instance slot. ``expand_sorted`` sorts the keys, builds the per-tile
+ranges and, unless ``build_table=False`` (the surfel path builds its own),
+the feature table, as the JAX function does after its Pallas call.
+``segment_rows_sorted`` sums any per-instance rows of a backward kernel
+back to per-gaussian sums, without float atomics; ``reduce_grads_sorted``
+names the 3DGS backward's rows.
 
 On a CPU tensor ``expand_instances`` runs ``expand_instances_plain``, the
 plain PyTorch version of the same function; on a CUDA tensor it launches
@@ -44,7 +46,7 @@ class Prep(NamedTuple):
 
 class SortedBins(NamedTuple):
     """Depth-sorted per-tile instances (the JAX ``SortedBins``)."""
-    table: torch.Tensor          # (6 + nch, I) f32 [u v a b c logop ch...]
+    table: torch.Tensor | None   # (6 + nch, I) f32 [u v a b c logop ch...]
     tile_start: torch.Tensor     # (T+1,) int32
     s_owner: torch.Tensor        # (I,) int32 owner per sorted instance
     perm: torch.Tensor           # (I,) int64 expansion slot per sorted one
@@ -183,8 +185,11 @@ def sort_instances(keys, owners, *, num_tiles: int, depth_bits: int,
 def expand_sorted(means2d, conics, depths, radii, radii_xy, rad2, colors,
                   opacities, *, width: int, height: int, tile_size: int = 16,
                   instance_capacity: int = 1 << 20, mt: int = 64,
-                  guard_lanes: int = 2048) -> SortedBins:
-    """Expand -> (tile | depth) sort -> feature table and per-tile ranges."""
+                  guard_lanes: int = 2048,
+                  build_table: bool = True) -> SortedBins:
+    """Expand -> (tile | depth) sort -> per-tile ranges and, with
+    ``build_table``, the feature table (else ``table`` is None and
+    ``conics``, ``colors`` and ``opacities`` are not read)."""
     if mt > 256:
         raise ValueError("mt must be <= 256")
     cap = instance_capacity
@@ -196,45 +201,57 @@ def expand_sorted(means2d, conics, depths, radii, radii_xy, rad2, colors,
     s_key, s_owner, tile_start, perm = sort_instances(
         keys, owners, num_tiles=num_tiles, depth_bits=depth_bits,
         guard_lanes=guard_lanes)
-    inst = torch.where(s_key == CULLED_KEY, -1, s_owner)
-    table = build_feature_table(means2d, conics, colors, opacities, inst)
+    table = None
+    if build_table:
+        inst = torch.where(s_key == CULLED_KEY, -1, s_owner)
+        table = build_feature_table(means2d, conics, colors, opacities, inst)
     return SortedBins(
         table=table, tile_start=tile_start, s_owner=s_owner, perm=perm,
         g_offsets=p.offsets, g_counts=p.counts, num_instances=p.total,
         tile_counts=tile_start[1:] - tile_start[:-1])
 
 
-def reduce_grads_sorted(grads: torch.Tensor, bins: SortedBins, *,
-                        nch: int = 3) -> dict[str, torch.Tensor]:
-    """Per-instance gradient rows (9 + nch, I) in sorted order -> per-
-    gaussian sums (counterpart of ``pallas_bin.reduce_grads_sorted``).
+def segment_rows_sorted(grads: torch.Tensor, bins: SortedBins,
+                        rows) -> torch.Tensor:
+    """Per-instance rows in sorted order -> (len(rows), N) per-gaussian
+    sums of ``grads[rows]`` (counterpart of
+    ``pallas_bin.segment_rows_sorted``).
 
-    Rows at or past ``tile_start[-1]`` (culled instances and the capacity
-    tail, never written by the kernel) are zeroed; the rows are gathered
-    back to expansion order through the inverse of the sort's permutation
-    (no float atomics, so the result is deterministic); each gaussian's
-    instances are then contiguous, and its sum is the end-of-segment
-    difference ``E[g] - E[g-1]`` of one float32 cumsum per row (each row
-    scanned as one 1-D tensor: a scan along the last axis of a few long
-    rows runs one block per row on the card).
-
-    -> dict(means2d (N, 2), conics (N, 3), colors (N, nch), opacity (N,),
-    absgrad (N, 2), npix (N,))."""
+    Columns at or past ``tile_start[-1]`` (culled instances and the
+    capacity tail, never written by a kernel) are zeroed; the rows are
+    gathered back to expansion order through the inverse of the sort's
+    permutation (no float atomics, so the result is deterministic); each
+    gaussian's instances are then contiguous, and its sum is the
+    end-of-segment difference ``E[g] - E[g-1]`` of one float32 cumsum per
+    row (each row scanned as one 1-D tensor: a scan along the last axis of
+    a few long rows runs one block per row on the card)."""
     icap = grads.shape[1]
-    ngrad = 9 + nch
-    live = torch.arange(icap, device=grads.device) < bins.tile_start[-1]
-    g = torch.where(live[None, :], grads[:ngrad],
-                    torch.zeros((), device=grads.device))
+    dev = grads.device
+    zero = torch.zeros((), device=dev)
+    live = torch.arange(icap, device=dev) < bins.tile_start[-1]
+    sel = (grads[rows.start:rows.stop:rows.step] if isinstance(rows, range)
+           else grads[list(rows)])
+    g = torch.where(live[None, :], sel, zero)
     inv = torch.empty_like(bins.perm)
-    inv[bins.perm] = torch.arange(icap, device=grads.device)
+    inv[bins.perm] = torch.arange(icap, device=dev)
     ge = torch.index_select(g, 1, inv)
     cs = torch.stack([torch.cumsum(row, 0) for row in ge])
     hi = (bins.g_offsets + bins.g_counts - 1).long()
     e = torch.where(hi[None, :] >= 0, cs[:, torch.clamp(hi, 0, icap - 1)],
-                    torch.zeros((), device=grads.device))
-    e_prev = torch.cat([e.new_zeros((ngrad, 1)), e[:, :-1]], 1)
-    seg = torch.where((bins.g_counts > 0)[None, :], e - e_prev,
-                      torch.zeros((), device=grads.device))
+                    zero)
+    e_prev = torch.cat([e.new_zeros((len(g), 1)), e[:, :-1]], 1)
+    return torch.where((bins.g_counts > 0)[None, :], e - e_prev, zero)
+
+
+def reduce_grads_sorted(grads: torch.Tensor, bins: SortedBins, *,
+                        nch: int = 3) -> dict[str, torch.Tensor]:
+    """The 3DGS backward's rows (9 + nch, I) in sorted order -> per-
+    gaussian sums (counterpart of ``pallas_bin.reduce_grads_sorted``), by
+    ``segment_rows_sorted``.
+
+    -> dict(means2d (N, 2), conics (N, 3), colors (N, nch), opacity (N,),
+    absgrad (N, 2), npix (N,))."""
+    seg = segment_rows_sorted(grads, bins, range(9 + nch))
     return {
         "means2d": seg[0:2].T,
         "conics": seg[2:5].T,

@@ -297,19 +297,24 @@ def rasterize_backward_plain(table: torch.Tensor, tile_start: torch.Tensor,
                              cot: torch.Tensor, fwd: torch.Tensor, *,
                              width: int, height: int, tile_size: int = 16,
                              nch: int = 3, t_eps: float = T_EPS,
-                             with_absgrad: bool = True) -> torch.Tensor:
+                             with_absgrad: bool = True,
+                             abs_sums: bool = False):
     """Plain PyTorch version of the backward kernel. The forward is
     recomputed as ``rasterize_forward_plain`` does it (the same float32
     operations, so the same cull, clamp and stop decisions); each pixel's
     sequential walk records, per applied instance, its transmittance before
     it and the running sum of ``w cdot``; the gradient terms are then
-    evaluated for the whole chunk at once and summed over the pixels."""
+    evaluated for the whole chunk at once and summed over the pixels. With
+    ``abs_sums`` it returns ``(grads, sums)``: ``sums`` holds, per row and
+    column, the sum of the magnitudes of the per-pixel terms, the scale of
+    the rounding error of that entry's sum."""
     dev = table.device
     tiles_x, tiles_y = _grid(width, height, tile_size)
     num_tiles = tiles_x * tiles_y
     px = tile_size * tile_size
     t_eps = float(np.float32(t_eps))
     grads = torch.zeros((9 + nch, table.shape[1]), device=dev)
+    sums = torch.zeros_like(grads) if abs_sums else None
 
     tile = torch.arange(num_tiles, device=dev)
     s0 = tile_start[:-1].long()
@@ -366,15 +371,17 @@ def rasterize_backward_plain(table: torch.Tensor, tile_start: torch.Tensor,
                 -1, pos, True)[..., :chunk]
             _backward_chunk_rows(grads, s0[:, None] + kk, valid, f, dx, dy,
                                  s, alpha, g, cf, gt_tfin, cdot, t_ex,
-                                 cd_in, app, nch, with_absgrad)
+                                 cd_in, app, nch, with_absgrad, sums)
         k0 += chunk
-    return grads
+    return (grads, sums) if abs_sums else grads
 
 
 def _backward_chunk_rows(grads, cols, valid, f, dx, dy, s, alpha, g, cf,
-                         gt_tfin, cdot, t_ex, cd_in, app, nch, with_absgrad):
+                         gt_tfin, cdot, t_ex, cd_in, app, nch, with_absgrad,
+                         sums=None):
     """Gradient rows of one chunk of instance positions, written into
-    ``grads[:, cols]`` where ``valid``. Terms of instances that were not
+    ``grads[:, cols]`` where ``valid``, and the sums of their terms'
+    magnitudes into ``sums`` when given. Terms of instances that were not
     applied are exact zeros (``where``, so a NaN instance adds no NaN)."""
     zero = torch.zeros((), device=grads.device)
     live = app & (s < _LOG_AMAX_F32)
@@ -385,17 +392,22 @@ def _backward_chunk_rows(grads, cols, valid, f, dx, dy, s, alpha, g, cf,
     du = torch.where(live, ds * (a * dx + b * dy), zero)
     dv = torch.where(live, ds * (b * dx + c * dy), zero)
     w = torch.where(app, alpha * t_ex, zero)
-    rows = [du.sum(1), dv.sum(1),
-            torch.where(live, -0.5 * ds * dx * dx, zero).sum(1),
-            torch.where(live, -ds * dx * dy, zero).sum(1),
-            torch.where(live, -0.5 * ds * dy * dy, zero).sum(1),
-            ds.sum(1) * torch.exp(-torch.fmax(f[ROW_LOGOP],
-                                              f.new_tensor(LOGOP_FLOOR)))]
-    rows += list(torch.einsum("cap,apk->cak", g, w))
+    conic = [torch.where(live, -0.5 * ds * dx * dx, zero),
+             torch.where(live, -ds * dx * dy, zero),
+             torch.where(live, -0.5 * ds * dy * dy, zero)]
+    inv_op = torch.exp(-torch.fmax(f[ROW_LOGOP], f.new_tensor(LOGOP_FLOOR)))
     if with_absgrad:
-        rows += [du.abs().sum(1), dv.abs().sum(1)]
+        absgrad = [du.abs().sum(1), dv.abs().sum(1)]
     else:
-        rows += [zero.expand_as(du[:, 0]), zero.expand_as(du[:, 0])]
-    rows.append(live.sum(1).float())
-    vals = torch.stack(rows, 0)                                 # (9+nch, A, C)
-    grads[:, cols[valid]] = vals[:, valid]
+        absgrad = [zero.expand_as(du[:, 0]), zero.expand_as(du[:, 0])]
+    npix = [live.sum(1).float()]
+    rows = ([du.sum(1), dv.sum(1)] + [x.sum(1) for x in conic]
+            + [ds.sum(1) * inv_op]
+            + list(torch.einsum("cap,apk->cak", g, w)) + absgrad + npix)
+    grads[:, cols[valid]] = torch.stack(rows, 0)[:, valid]   # (9+nch, A, C)
+    if sums is not None:
+        rows = ([du.abs().sum(1), dv.abs().sum(1)]
+                + [x.abs().sum(1) for x in conic] + [ds.abs().sum(1) * inv_op]
+                + list(torch.einsum("cap,apk->cak", g.abs(), w)) + absgrad
+                + npix)
+        sums[:, cols[valid]] = torch.stack(rows, 0)[:, valid]

@@ -7,6 +7,8 @@ PyTorch autograd, then one ``torch.autograd.Function`` (``RasterBinned``,
 the counterpart of ``pallas_raster._make_raster_binned``) whose forward runs
 the expand kernel, the sort, the feature gather and the forward kernel, and
 whose backward runs the backward kernel and the per-gaussian reduce.
+``backend="surfel_pallas"`` renders exact-2DGS surfels instead
+(``surfel_raster.render_surfels``).
 
 ``render_fast`` is the inference-only viewer path: the same forward with
 no autograd. The returned ``FastBins`` (table and tile ranges) can be
@@ -23,6 +25,7 @@ import torch
 from divshot_tpu_torch.raster import raster as _raster
 from divshot_tpu_torch.raster.bin import expand_sorted, reduce_grads_sorted
 from divshot_tpu_torch.raster.project import Projection, project_gaussians
+from divshot_tpu_torch.raster.surfel_raster import render_surfels
 from divshot_tpu_torch.splat.camera import Camera
 from divshot_tpu_torch.splat.gaussians import GaussianParams
 from divshot_tpu_torch.splat.math import safe_normalize
@@ -179,19 +182,29 @@ def render(
     with_absgrad: bool = True,
 ) -> RenderOutput:
     """Differentiable render through the hand-written kernels. ``backend``
-    and ``binning`` keep the JAX package's names; the port has only the
-    kernel route, ``"pallas"`` / ``"pallas"``.
+    and ``binning`` keep the JAX package's names; the port has the kernel
+    routes only: ``"pallas"`` / ``"pallas"`` (3DGS) and ``"surfel_pallas"``
+    (exact 2DGS, without the geometry planes, as in JAX).
 
     ``absgrad_sink`` / ``means2d_sink`` are zero (N, 2) inputs whose
     gradients harvest the AbsGS absolute and the signed screen-space
     gradients per gaussian, ``npix_sink`` (N,) the pixels each splat was
     applied to. ``extra_colors`` (N, E <= 4) adds planes composited in the
     same pass, returned as ``extra``."""
+    if backend == "surfel_pallas":
+        return render_surfels(
+            params, camera, sh_degree=sh_degree, background=background,
+            tile_size=tile_size, instance_capacity=instance_capacity,
+            instance_capacity_mult=instance_capacity_mult,
+            max_tiles_per_gaussian=max_tiles_per_gaussian, t_eps=t_eps,
+            absgrad_sink=absgrad_sink, means2d_sink=means2d_sink,
+            npix_sink=npix_sink, with_geometry=False)
     if backend != "pallas" or binning != "pallas":
         raise NotImplementedError(
             f"render(backend={backend!r}, binning={binning!r}): the port "
-            f"has only the kernel route (pallas/pallas); the other "
-            f"backends are still to port (ROADMAP.md, Queue A)")
+            f"has only the kernel routes (pallas/pallas, surfel_pallas); "
+            f"the other backends, the XLA surfel compositor among them, "
+            f"are still to port (ROADMAP.md, Queue A)")
     if sh_degree is None:
         sh_degree = params.sh_degree
     dev = params.device

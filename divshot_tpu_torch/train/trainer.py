@@ -1,21 +1,30 @@
-"""The static-3DGS training step and its host loop (counterpart of
+"""The static training step and its host loop (counterpart of
 ``divshot_tpu/train/trainer.py``).
 
-One step: pick a view, render it through the kernels (``render``: project,
-SH colour, expand, sort, forward), L1 + D-SSIM loss, the backward kernel
-and the per-splat reduce, autograd back through projection and SH, per-
-group Adam, densification statistics, then refine, alpha reset or MCMC
-noise on the schedule. The step is eager PyTorch: the schedule's branches
-are plain Python on the host step count, and nothing in the step reads a
-value back from the card; ``Trainer.run`` reads the metrics only where it
-logs them.
+One step: pick a view, render it through the kernels, L1 + D-SSIM loss
+(plus the 2DGS geometry losses where configured), the backward kernel and
+the per-splat reduce, autograd back through projection and SH, per-group
+Adam, densification statistics, then refine, alpha reset or MCMC noise on
+the schedule. The step is eager PyTorch: the schedule's branches are plain
+Python on the host step count, and nothing in the step reads a value back
+from the card; ``Trainer.run`` reads the metrics only where it logs them.
 
-Ported: the 3DGS model (``model_type=0``), one view per step, full
-resolution, images held on the device, the ADC, ADC+ and MCMC strategies
-and the periodic prune. The rest raises ``NotImplementedError`` naming
-ROADMAP.md: 2DGS, the background model, masks, the geometry losses,
-dynamic models, streamed datasets, batches, progressive resolution,
-gradient all-reduce across chips, buffer packing and NaN debugging.
+Routes, as in JAX: 3DGS (``model_type=0``) renders through the 3DGS
+kernels (``render``); exact 2DGS (``model_type=1``, ``surfel_exact``, the
+default) through the surfel kernels (``render_surfels``); flattened 2DGS
+(``surfel_exact=False``) flattens the splats and renders them through the
+3DGS kernels. A ``render_kwargs["backend"]`` overrides the route. With
+the normal-consistency or the depth-distortion loss, or on 2DGS, the step
+composites the planes ``[z, z^2, nx, ny]`` in the same pass (the surfel
+kernels' own depth planes, or the 3DGS kernels' extra channels).
+
+Ported: the 3DGS and 2DGS models, the geometry losses, one view per step,
+full resolution, images held on the device, the ADC, ADC+ and MCMC
+strategies and the periodic prune. The rest raises ``NotImplementedError``
+naming ROADMAP.md: the background model, masks, dynamic models, streamed
+datasets, batches, progressive resolution, gradient all-reduce across
+chips, buffer packing, NaN debugging and the XLA surfel compositor
+(``backend="surfel"``).
 """
 
 from __future__ import annotations
@@ -29,10 +38,14 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from divshot_tpu_torch.core.config import DensifyStrategy, TrainConfig
+from divshot_tpu_torch.core.config import (DensifyStrategy, ModelType,
+                                           TrainConfig)
 from divshot_tpu_torch.raster.render import render
+from divshot_tpu_torch.raster.surfel_raster import render_surfels
 from divshot_tpu_torch.splat.camera import Camera, batch_cameras
 from divshot_tpu_torch.splat.gaussians import GaussianParams
+from divshot_tpu_torch.splat.math import matvec3
+from divshot_tpu_torch.train import geometry as G
 from divshot_tpu_torch.train import strategy as S
 from divshot_tpu_torch.train.losses import photometric_loss, psnr
 from divshot_tpu_torch.train.optim import PARAM_FIELDS, AdamState, adam_update
@@ -158,12 +171,10 @@ def check_supported(cfg: TrainConfig, dataset: Dataset | None = None,
     """Raise ``NotImplementedError`` for every option of the JAX trainer
     that the port does not run yet."""
     checks = [
-        (cfg.model_type != 0, f"model_type={cfg.model_type} (2DGS and the "
-                              f"dynamic models)"),
+        (cfg.model_type not in (ModelType.GS3D, ModelType.GS2D),
+         f"model_type={cfg.model_type} (the dynamic models)"),
         (cfg.enable_bg, "enable_bg (the background model)"),
         (cfg.use_mask, "use_mask (training with masks)"),
-        (cfg.normal_consistency_loss, "the normal-consistency loss"),
-        (cfg.dist_loss_weight > 0, "the depth-distortion loss"),
         (max(batch_size, cfg.batch_size) > 1, "batch_size > 1"),
         (res_scale > 1 or cfg.progressive_train,
          "progressive resolution (res_scale > 1)"),
@@ -181,8 +192,12 @@ def check_supported(cfg: TrainConfig, dataset: Dataset | None = None,
 
 
 def render_kwargs_from_config(cfg: TrainConfig) -> dict[str, Any]:
+    """The step's render arguments; ``backend`` from the model type:
+    ``"surfel_pallas"`` for exact 2DGS, else ``"pallas"``."""
     rc = cfg.raster
+    exact2d = cfg.model_type == ModelType.GS2D and cfg.surfel_exact
     return dict(
+        backend="surfel_pallas" if exact2d else "pallas",
         tile_size=rc.tile_size, antialiased=rc.mip_antialiased,
         eps2d=rc.eps2d, radius_clip=rc.radius_clip,
         t_eps=rc.transmittance_min,
@@ -192,6 +207,40 @@ def render_kwargs_from_config(cfg: TrainConfig) -> dict[str, Any]:
         # the AbsGS rows are consumed only by the ADC strategies
         with_absgrad=bool(cfg.densify.use_abs_grad
                           and cfg.densify.strategy != DensifyStrategy.MCMC))
+
+
+def geometry_loss(cfg: TrainConfig, planes: torch.Tensor,
+                  alpha: torch.Tensor, camera: Camera, step: int,
+                  hyp: dict[str, float]) -> torch.Tensor | float:
+    """The step's 2DGS geometry terms from the composited planes (H, W, 4)
+    ``[z, z^2, nx, ny]`` and the alpha (H, W): the normal-consistency loss
+    (with ``normal_consistency_loss`` or on 2DGS) and the depth-distortion
+    loss (``dist_loss_weight`` > 0), each weighted 0 before its start step
+    and still computed, as in JAX."""
+    # torch.maximum / minimum, not clamp: at a tie (dist = 0 exactly at a
+    # pixel one splat covers) they pass half the gradient, as jnp.maximum
+    # does, where clamp passes all of it
+    zero = torch.zeros((), device=alpha.device)
+    alpha_s = torch.maximum(alpha, zero + 1e-6)
+    depth = planes[..., 0] / alpha_s
+    loss = 0.0
+    if cfg.normal_consistency_loss or cfg.model_type == ModelType.GS2D:
+        nx = planes[..., 2] / alpha_s
+        ny = planes[..., 3] / alpha_s
+        nz = -torch.sqrt(torch.minimum(torch.maximum(
+            1.0 - nx ** 2 - ny ** 2, zero + 1e-6), zero + 1.0))
+        nloss = G.normal_consistency_loss(torch.stack([nx, ny, nz], -1),
+                                          depth, alpha, camera)
+        w = hyp["normal_loss_weight"] if step >= cfg.normal_start_iter \
+            else 0.0
+        loss = loss + w * nloss
+    if cfg.dist_loss_weight > 0:
+        # depth distortion (2DGS): sum_ij w_i w_j (z_i - z_j)^2 =
+        # 2 (sum w z^2 sum w - (sum w z)^2) per pixel, from the planes
+        dist = planes[..., 1] * alpha - planes[..., 0] ** 2
+        wd = hyp["dist_loss_weight"] if step >= cfg.dist_start_iter else 0.0
+        loss = loss + wd * torch.maximum(dist, zero).mean()
+    return loss
 
 
 def make_train_step(cfg: TrainConfig, dataset: Dataset,
@@ -207,12 +256,45 @@ def make_train_step(cfg: TrainConfig, dataset: Dataset,
                     grad_psum_axis=grad_psum_axis)
     rk = render_kwargs_from_config(cfg)
     rk.update(render_kwargs or {})
+    backend = rk["backend"]
+    surfel = (cfg.model_type == ModelType.GS2D
+              and backend not in ("tiles", "dense", "pallas"))
+    if surfel and backend != "surfel_pallas":
+        raise _unported(f"render backend {backend!r} (the XLA surfel "
+                        f"compositor)")
+    srk = {k: v for k, v in rk.items()
+           if k in ("tile_size", "instance_capacity", "instance_capacity_mult",
+                    "max_tiles_per_gaussian", "t_eps")}
+    need_geom = (cfg.normal_consistency_loss
+                 or cfg.model_type == ModelType.GS2D
+                 or cfg.dist_loss_weight > 0)
     extent = dataset.scene_extent
     dcfg = cfg.densify
     dev = dataset.images.device
     bg = torch.full((3,), 1.0 if cfg.white_background else 0.0, device=dev)
     W, H = dataset.cameras[0].width, dataset.cameras[0].height
     ndc_scale = torch.tensor([W / 2.0, H / 2.0], device=dev)
+
+    def render_view(p: GaussianParams, camera: Camera, sinks):
+        """-> the view's RenderOutput; its ``extra`` holds the planes
+        [z, z^2, nx, ny] when the geometry losses need them."""
+        sink_kw = dict(absgrad_sink=sinks[0], means2d_sink=sinks[1],
+                       npix_sink=sinks[2])
+        if surfel:
+            return render_surfels(p, camera, background=bg,
+                                  with_geometry=need_geom, **sink_kw, **srk)
+        if cfg.model_type == ModelType.GS2D:
+            p = G.flatten_to_surfels(p)
+        aux = None
+        if need_geom:
+            # camera-space depth and normals; camera-facing, so nz < 0 is
+            # recoverable from (nx, ny); z and z^2 feed the distortion
+            z = matvec3(camera.rotation, p.means, camera.translation)[:, 2]
+            n_cam = matvec3(camera.rotation, G.splat_normals(p, camera),
+                            (0.0, 0.0, 0.0))
+            aux = torch.stack([z, z * z, n_cam[:, 0], n_cam[:, 1]], 1)
+        return render(p, camera, background=bg, extra_colors=aux,
+                      **sink_kw, **rk)
 
     def train_step(state: TrainState, view_idx: int,
                    hypers: dict[str, float] | None = None):
@@ -231,10 +313,12 @@ def make_train_step(cfg: TrainConfig, dataset: Dataset,
         p = dataclasses.replace(params, **leaves)
         p = dataclasses.replace(
             p, shN=p.shN * sh_band_mask(p.shN.shape[1], deg, dev))
-        out = render(p, camera, background=bg, absgrad_sink=sinks[0],
-                     means2d_sink=sinks[1], npix_sink=sinks[2], **rk)
+        out = render_view(p, camera, sinks)
         loss = photometric_loss(out.image, gt, hyp["ssim_weight"],
                                 use_ssim=cfg.ssim_weight > 0)
+        if need_geom:
+            loss = loss + geometry_loss(cfg, out.extra, out.alpha, camera,
+                                        step, hyp)
         inputs = [*leaves.values(), *sinks]
         grads = [torch.zeros_like(x) if g is None else g for x, g in zip(
             inputs, torch.autograd.grad(loss, inputs, allow_unused=True))]

@@ -1,7 +1,7 @@
 """The port stands alone: with JAX, flax, PIL and ``divshot_tpu`` blocked,
 every module of ``divshot_tpu_torch`` imports and ``chip_smoke.py``'s
-kernel, viewer-path and training-path phases run on the CPU at a tiny
-scale, with a ``kernels`` record for every kernel. Also checks on
+kernel, viewer-path, training-path and 2DGS training-path phases run on
+the CPU at a tiny scale, with a ``kernels`` record for every kernel. Also checks on
 the port's files: no JAX or ``divshot_tpu`` import outside docstrings, no
 file over 200 KB, and the kernel build directory ignored by git."""
 
@@ -34,10 +34,11 @@ with contextlib.redirect_stdout(buf):
     checks = chip_smoke.phase_kernels_vs_plain(dev, chip_smoke.TINY)
     records = chip_smoke.phase_main_path(dev, chip_smoke.TINY)
     train = chip_smoke.phase_training(dev, chip_smoke.TINY)
+    train2d = chip_smoke.phase_training_2dgs(dev, chip_smoke.TINY)
 out = buf.getvalue()
 assert '"ok"' not in out, out
 assert all(v == 0.0 for v in checks.values()), checks
-assert len(checks) == 6, checks
+assert len(checks) == 9, checks
 assert [(r["scene"], r["name"]) for r in records] == [
     (s, k) for s in ("tpu_bricks_mcmc", "random_1500")
     for k in ("expand", "forward")]
@@ -47,14 +48,24 @@ assert [(r["scene"], r["name"]) for r in train] == [
     ("random_1500", "backward")]
 keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
-for r in records + train:
+assert [(r["scene"], r["name"]) for r in train2d] == [
+    (s, k) for s in ("bars_2dgs_48", "train2d_500_64", "tpu_bricks_2dgs2")
+    for k in ("expand", "surfel_forward", "surfel_backward")]
+for r, (name, line) in zip(train2d[1:3], (("forward", 126), ("backward",
+                                                              202))):
+    assert r["source"] == f"divshot_tpu_torch/csrc/surfel_{name}.cu"
+    assert r["replaces"] == f"divshot_tpu/raster/pallas_surfel.py:{line}"
+assert all(r["nch"] == 5 for r in train2d if r["name"] == "surfel_backward")
+assert "it_per_s" in train2d[4] and "(b) train2d bench" in out
+assert "surfel nch 3" in out and "surfel nch 5" in out
+for r in records + train + train2d:
     assert keys <= set(r), r
     assert r["route"] == "cuda" and r["library_ms"] is None
     assert r["max_abs_err"] == 0.0 and r["bound_ms"] > 0
 bwd = train[8]
 assert bwd["source"] == "divshot_tpu_torch/csrc/backward.cu"
 assert bwd["replaces"] == "divshot_tpu/raster/pallas_raster.py:437"
-assert "it_per_s" in bwd and "(a) adc+" in out and "(b) 500 splats" in out
+assert "it_per_s" in bwd and "(a) adc+" in out and "(b) bench: 500 splats" in out
 assert [r["with_absgrad"] for r in train if r["name"] == "backward"] == [
     True, False, False, False]
 assert all("launches_per_step" in r for r in train[:9])

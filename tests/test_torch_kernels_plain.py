@@ -277,6 +277,31 @@ def test_backward_plain_matches_float64_autograd(nch, per_tile,
         assert err < 2e-5, (r, err)
 
 
+@pytest.mark.parametrize("with_absgrad", [True, False])
+def test_backward_plain_abs_sums(with_absgrad):
+    """``abs_sums``: the same gradient rows, and per entry the sum of its
+    per-pixel terms' magnitudes, which is at least the entry's magnitude,
+    equals the |du| |dv| rows in the du dv rows, and equals the entry in
+    the rows whose terms are magnitudes (|du| |dv|, npix)."""
+    rng = np.random.default_rng(11)
+    w, h, nch = 32, 16, 3
+    table, start = _random_table(rng, 25, w, h, nch)
+    cot = torch.from_numpy(rng.standard_normal(
+        (start.numel() - 1, 8, 256)).astype(np.float32))
+    cot[:, nch:7] = 0.0
+    kw = dict(width=w, height=h, nch=nch, with_absgrad=with_absgrad)
+    fwd = R.rasterize_forward_plain(table, start, width=w, height=h, nch=nch)
+    grads = R.rasterize_backward_plain(table, start, cot, fwd, **kw)
+    g2, sums = R.rasterize_backward_plain(table, start, cot, fwd,
+                                          abs_sums=True, **kw)
+    assert torch.equal(grads, g2)
+    assert (grads.abs() <= sums * (1 + 1e-6)).all()
+    assert torch.equal(sums[6 + nch:], grads[6 + nch:])
+    if with_absgrad:
+        assert torch.equal(sums[0:2], grads[6 + nch:8 + nch])
+    assert float(sums[:5].min()) >= 0.0 and float(sums[:5].max()) > 0.0
+
+
 def test_nan_instances_are_culled_in_every_plain_kernel():
     """A NaN centre, radius or log-opacity culls the instance, as a
     log-opacity at the floor does, and contributes no NaN anywhere."""
@@ -388,7 +413,8 @@ def test_wrappers_take_the_plain_version_on_cpu():
     b2 = R.rasterize_backward_plain(sb.table, sb.tile_start, cot, f1,
                                     width=cam.width, height=cam.height)
     assert torch.equal(b1, b2)
-    assert _build.LAUNCHES == {"expand": 0, "forward": 0, "backward": 0}
+    assert _build.LAUNCHES == {"expand": 0, "forward": 0, "backward": 0,
+                               "surfel_forward": 0, "surfel_backward": 0}
 
 
 def test_non_cpu_tensors_never_reach_the_plain_version():

@@ -1,7 +1,7 @@
 """The port's trainer and train app on the CPU: the loss bars of
 ``tests/test_train.py`` met through the port, the capacity growth from
-measured demand, the carried-across state, and the options that are not
-ported yet raising instead of being ignored."""
+measured demand, the carried-across state, the 2DGS demo, and the options
+that are not ported yet raising instead of being ignored."""
 
 import numpy as np
 import pytest
@@ -132,9 +132,8 @@ def test_train_state_carry_across_and_step_schedule():
 
 def test_unported_options_raise():
     cfg, ds, params = _tiny()
-    for kw in (dict(model_type=1), dict(enable_bg=True),
-               dict(use_mask=True), dict(normal_consistency_loss=True),
-               dict(dist_loss_weight=0.1), dict(batch_size=2),
+    for kw in (dict(model_type=2), dict(model_type=3), dict(enable_bg=True),
+               dict(use_mask=True), dict(batch_size=2),
                dict(progressive_train=True), dict(pack_level=1)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Trainer(cfg.replace(**kw), ds, params)
@@ -146,6 +145,8 @@ def test_unported_options_raise():
         Dataset.from_views(ds.cameras, ds.images.numpy(), stream=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         render(params, ds.cameras[0], backend="tiles")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_train_step(cfg.replace(model_type=1), ds, {"backend": "surfel"})
     with pytest.raises(ValueError, match="uniform resolution"):
         batch_cameras([ds.cameras[0],
                        orbit_cameras(1, width=16, device=CPU)[0]])
@@ -154,10 +155,45 @@ def test_unported_options_raise():
 @pytest.mark.parametrize("flag", [
     ["--source_path", "scene"], ["--model_path", "out"],
     ["--eval_every", "100"], ["--load_itr", "5"], ["--export_mesh", "1"],
-    ["--model_type", "1"], ["--enable_bg", "1"], ["--use_mask", "1"]])
+    ["--model_type", "2"], ["--enable_bg", "1"], ["--use_mask", "1"]])
 def test_train_app_unported_flags_raise(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train_app.main(["--demo", "--device", "cpu", *flag])
+
+
+@pytest.mark.parametrize("exact", ["1", "0"])
+def test_train_app_demo_2dgs(exact, monkeypatch, capsys):
+    """``--demo --model_type 1`` trains on the CPU, on a demo scene cut to
+    a few hundred splats at 48 px: the exact route through the surfel
+    kernels' plain versions, ``--surfel_exact 0`` the flattened route
+    through the 3DGS ones."""
+    from divshot_tpu_torch.raster import raster as R
+    from divshot_tpu_torch.raster import surfel_raster as SR
+    monkeypatch.setattr(train_app, "DEMO_SPLATS", 300)
+    monkeypatch.setattr(train_app, "DEMO_VIEWS", 2)
+    monkeypatch.setattr(train_app, "DEMO_WIDTH", 48)
+    calls = {"surfel": 0, "3dgs": 0}
+
+    def counted(name, fn):
+        def wrapped(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    monkeypatch.setattr(SR, "surfel_backward_plain", counted(
+        "surfel", SR.surfel_backward_plain))
+    monkeypatch.setattr(R, "rasterize_backward_plain", counted(
+        "3dgs", R.rasterize_backward_plain))
+    tr = train_app.run(["--demo", "--device", "cpu", "--model_type", "1",
+                        "--surfel_exact", exact, "--iterations", "3",
+                        "--cap_max", "1024"])
+    assert tr is not None and tr.state.step == 3
+    assert tr.cfg.model_type == 1 and tr.cfg.surfel_exact == (exact == "1")
+    assert calls == ({"surfel": 3, "3dgs": 0} if exact == "1"
+                     else {"surfel": 0, "3dgs": 3})
+    last = capsys.readouterr().out.strip().splitlines()[-1]
+    assert last.startswith("[3/3]")
+    assert np.isfinite(float(last.split("loss=")[1].split()[0]))
 
 
 def test_train_app_needs_demo(capsys):
