@@ -7,10 +7,16 @@ NVIDIA card.
 Phases, each a function of ``(device, scale)``:
 
 1. card identity (fails without a CUDA device);
-2. build the kernel library from ``divshot_tpu_torch/csrc`` (one ``nvcc``);
+2. build the kernel library from ``divshot_tpu_torch/csrc`` (one ``nvcc``)
+   and print each kernel's registers, shared memory and spills;
 3. each kernel against its plain PyTorch version at a bounded size, with
    NaN instances in the inputs, and the backward at nch 3 and 7 with the
-   AbsGS rows on and off;
+   AbsGS rows on and off; each backward kernel on a synthetic frame whose
+   long tile is cut into five units (``unit_split_frame``: NaN, clamping
+   and edge-on columns on unit boundaries, pixels that stop inside an
+   earlier unit, a unit after every pixel's stop, a tile shorter than a
+   unit). Every backward check also launches the kernel twice and
+   requires bitwise-equal gradients;
 4. the viewer path (``divshot_tpu_torch.apps.render``) at 1920x1080 on the
    repo's trained model ``runs/tpu_bricks_mcmc/point_cloud.ply`` and on a
    1M-splat random scene, with the launch counts that prove it went through
@@ -22,10 +28,12 @@ Phases, each a function of ``(device, scale)``:
    4 views, MCMC), warm-up then 30 steps timed with CUDA events; (c) one
    ``render`` forward + backward of a random 1M-splat scene at 1920x1080
    with a stage breakdown; (d) a few steps of
-   ``python -m divshot_tpu_torch.apps.train --demo``. Each of (a), (b),
-   (c) and (d) counts its own kernel launches, and each holds the three
-   kernels against their plain versions at its own shapes (the backward
-   with the cotangent of its loss and its AbsGS setting);
+   ``python -m divshot_tpu_torch.apps.train --demo``; (e) one ``render``
+   forward + backward of ``sum_loss`` on the repo's trained model at
+   1920x1080, whose longest tile never stops, with its stage breakdown.
+   Each of (a)-(e) counts its own kernel launches, and each holds the
+   three kernels against their plain versions at its own shapes (the
+   backward with the cotangent of its loss and its AbsGS setting);
 6. the exact-2DGS training path (``model_type=1``): (a) the 2DGS loss bar
    of ``tests/test_train.py:103-113`` met through the surfel kernels; (b)
    the train2d cell, phase 5(b)'s scene and views trained as exact
@@ -78,6 +86,8 @@ from divshot_tpu_torch.raster import raster as R
 from divshot_tpu_torch.raster import surfel_raster as SR
 from divshot_tpu_torch.raster.render import (frame_inputs, render,
                                              render_fast)
+from divshot_tpu_torch.raster.units import (UNIT, backward_schedule,
+                                            backward_schedule_plain)
 from divshot_tpu_torch.splat.gaussians import GaussianParams, init_from_points
 from divshot_tpu_torch.train.losses import photometric_loss
 from divshot_tpu_torch.train.trainer import (Dataset, Trainer, TrainState,
@@ -324,6 +334,8 @@ def phase_build(device: torch.device, scale: Scale) -> float:
     so, seconds = _build.build()
     _build.library()
     log(f"  built {so.name} in {seconds:.2f} s (0 = already built)")
+    for line in _build.ptxas_report(so):
+        log(f"  ptxas: {line}")
     return seconds
 
 
@@ -384,9 +396,10 @@ def row_floor(grads: torch.Tensor) -> torch.Tensor:
 
 def check_backward(route: Route, table, tile_start, fwd, cot, width: int,
                    height: int, nch: int, **bkw) -> dict:
-    """Backward kernel vs plain version on the columns the kernel writes.
-    npix must agree exactly; every other entry within BACKWARD_RTOL of its
-    row's largest magnitude and within BACKWARD_RTOL of its own scale: the
+    """Backward kernel vs plain version on the columns the kernel writes;
+    a second launch must give bitwise the same gradients. npix must agree
+    exactly; every other entry within BACKWARD_RTOL of its row's largest
+    magnitude and within BACKWARD_RTOL of its own scale: the
     larger of the sum of the magnitudes of its per-pixel terms (the plain
     version's ``abs_sums``; an outlier column's own rounding scale) and its
     row's ``row_floor`` (which covers entries whose terms cancel inside a
@@ -398,6 +411,7 @@ def check_backward(route: Route, table, tile_start, fwd, cot, width: int,
     kw = dict(width=width, height=height, nch=nch, **bkw)
     n = int(tile_start[-1])
     gk = route.bwd(table, tile_start, cot, fwd, **kw)[:, :n]
+    again = route.bwd(table, tile_start, cot, fwd, **kw)[:, :n]
     gp, sums = route.bwd_plain(table, tile_start, cot, fwd, abs_sums=True,
                                **kw)
     gp, sums = gp[:, :n], sums[:, :n]
@@ -405,6 +419,9 @@ def check_backward(route: Route, table, tile_start, fwd, cot, width: int,
     if not (bool(torch.isfinite(gk).all())
             and bool(torch.isfinite(gp).all())):
         raise AssertionError(f"{what}: non-finite gradient rows")
+    if not torch.equal(gk, again):
+        raise AssertionError(f"{what}: two launches differ (not "
+                             f"deterministic)")
     if not torch.equal(gk[-1], gp[-1]):
         raise AssertionError(f"{what}: npix differs from plain")
     diff = (gk - gp).abs()
@@ -429,7 +446,7 @@ def check_backward(route: Route, table, tile_start, fwd, cot, width: int,
     big = (gp.abs() > 1e3 * floor[:, None]) & (floor[:, None] > 0)
     return dict(max_abs_err=float(diff.max()) if n else 0.0,
                 row_rel=row_rel, scale_rel=scale_rel,
-                outlier_cols=int(big.any(0).sum()))
+                outlier_cols=int(big.any(0).sum()), npix=gp[-1])
 
 
 def _nan_prep(p: B.Prep) -> B.Prep:
@@ -508,6 +525,158 @@ def phase_kernels_vs_plain(device: torch.device, scale: Scale) -> dict:
         f"(max abs err {out['expand_err']}), forward max abs err "
         f"{out['forward_err']:.3e} (tolerance {FORWARD_ATOL})")
     out.update(surfel_kernels_vs_plain(params, cam, device))
+    for route, nch in ((GAUSS, 3), (SURFEL, SR.MAX_CH)):
+        out.update(unit_split_check(route, nch, device))
+    return out
+
+
+# --------------------------------------------------------------------------
+# the backward kernels' unit split
+
+
+def _splat_cols(route: Route, x0, y0, sigma, op, chans) -> np.ndarray:
+    """Table columns on ``route`` of isotropic splats centred at (x0, y0)
+    with a standard deviation of ``sigma`` px and opacity ``op`` (arrays
+    or scalars), channels ``chans`` (nch, n): a 3DGS conic (1/sigma^2, 0,
+    1/sigma^2) with its log-opacity, or a fronto-parallel surfel at depth
+    2 (T rows (sigma, 0, x0), (0, sigma, y0), (0, 0, 1))."""
+    n = chans.shape[1]
+    if route is GAUSS:
+        inv = 1.0 / np.asarray(sigma) ** 2
+        rows = [x0, y0, inv, 0.0, inv, np.log(op)]
+    else:
+        rows = [sigma, 0.0, x0, 0.0, sigma, y0, 0.0, 0.0, 1.0, 0.0, 0.0,
+                2.0, x0, y0, op]
+    return np.concatenate([np.stack([np.broadcast_to(
+        np.asarray(r, np.float64), (n,)) for r in rows]), chans])
+
+
+def unit_split_frame(route: Route, nch: int, device, seed: int = 0):
+    """A 32x32 frame (2x2 tiles of 16 px) for the backward's unit split
+    -> (table, tile_start, planted columns, tile 1's hitter columns, its
+    unit starts). Tile 0 holds random splats, fewer than a unit (``UNIT``
+    columns); tile 1 holds 4.5 units, so five units the first of which is
+    short: from column ``UNIT`` on, every sixth column (at ``UNIT`` 4096)
+    a broad splat (sigma 20 px, opacity 0.006-0.009) at the tile's centre,
+    whose alpha falls with the distance from it, so that the pixels stop at
+    different columns in units 1-3, and fillers far away that every pixel
+    culls; NaN, clamping and (surfels) edge-on columns sit on the first and
+    last column of its units; tile 2 is empty; tile 3 holds exactly one
+    unit of random splats."""
+    rng = np.random.default_rng(seed)
+    u = UNIT
+    n0, n1, n3 = u // 3 + 1, 4 * u + u // 2, u
+
+    def random_cols(n, cx, cy):
+        return _splat_cols(route, cx + rng.uniform(0, 16, n),
+                           cy + rng.uniform(0, 16, n),
+                           rng.uniform(0.4, 4.0, n),
+                           rng.uniform(0.05, 0.6, n),
+                           rng.uniform(0, 1, (nch, n)))
+
+    # hitters every `every` columns at opacity ~0.0075 `boost`, so that
+    # the pixels stop ~1.4-2.2 units after the first
+    every, boost = max(3, round(3 * u / 2048)), max(1.0, 2048 / u)
+    col = n0 + np.arange(n1)                     # tile 1's columns
+    hit = (col >= u) & ((col - u) % every == 0)
+    tile1 = _splat_cols(route, np.where(hit, 24 + rng.uniform(-1, 1, n1),
+                                        1e4),
+                        np.where(hit, 8 + rng.uniform(-1, 1, n1), 1e4), 20.0,
+                        boost * rng.uniform(0.006, 0.009, n1),
+                        rng.uniform(0, 1, (nch, n1)))
+    t = np.concatenate([random_cols(n0, 0, 0), tile1,
+                        random_cols(n3, 16, 16)], 1)
+    op_row = R.ROW_LOGOP if route is GAUSS else SR.ROW_OP
+
+    def clamp(c, x, y):        # opacity 1 centred on the pixel centre (x, y)
+        t[:, c] = _splat_cols(route, x, y, 0.25, 1.0, t[-nch:, c:c + 1])[:, 0]
+
+    def edge_on(c, eps):       # T rows (12, 1, 24), (24, 2 + 2 eps, 48)
+        if route is GAUSS:
+            t[0, c] = np.nan
+            return
+        t[:SR.ROW_CH, c] = [12.0, 1.0, 24.0, 24.0, 2.0 + 2.0 * eps, 48.0,
+                            0.0, 0.0, 1.0, 0.0, 0.0, 2.0, 24.0, 8.0, 0.9]
+
+    t[:, n0] = np.nan
+    clamp(u - 1, 20.5, 4.5)
+    if route is GAUSS:
+        clamp(u, 27.5, 11.5)
+    else:
+        edge_on(u, 1e-3)
+    t[op_row, 2 * u - 1] = np.nan
+    edge_on(2 * u, 0.0)
+    if route is GAUSS:
+        clamp(3 * u - 1, 27.5, 3.5)
+    else:
+        edge_on(3 * u - 1, 1e-6)
+    t[:, 3 * u] = np.nan
+    t[op_row, 4 * u - 1] = np.nan
+    edge_on(4 * u, 1e-3)
+    planted = [n0, u - 1, u, 2 * u - 1, 2 * u, 3 * u - 1, 3 * u, 4 * u - 1,
+               4 * u]
+    rows = (R.ROW_CH if route is GAUSS else SR.feat_rows(nch) - nch) + nch
+    table = np.zeros((rows, t.shape[1]), np.float32)
+    table[:t.shape[0]] = t
+    tile_start = torch.tensor([0, n0, n0 + n1, n0 + n1, n0 + n1 + n3],
+                              dtype=torch.int32, device=device)
+    hitters = [c for c in col[hit].tolist() if c not in planted]
+    return (torch.from_numpy(table).to(device), tile_start, planted, hitters,
+            [n0, u, 2 * u, 3 * u, 4 * u])
+
+
+def check_schedule(tile_start: torch.Tensor, num_instances: int,
+                   what: str) -> torch.Tensor:
+    """The backward kernels' schedule over these tiles as they find it on
+    the card (``units::find``, written out by ``backward_schedule``) must
+    equal its plain version, block for block -> the schedule."""
+    got = backward_schedule(tile_start, num_instances).cpu()
+    want = backward_schedule_plain(tile_start, num_instances)
+    if not torch.equal(got, want):
+        bad = (got != want).any(1).nonzero()[:4, 0].tolist()
+        raise AssertionError(f"{what}: the backward schedule differs from "
+                             f"plain at blocks {bad}: {got[bad].tolist()} "
+                             f"against {want[bad].tolist()}")
+    return want
+
+
+def unit_split_check(route: Route, nch: int, device) -> dict:
+    """Phase 3's check of the unit split: on ``unit_split_frame``, the
+    schedule on the card against its plain version and against the units
+    the frame plants, then the backward kernel against its plain version
+    under ``check_backward``'s bars and its determinism check; the frame's
+    pixels' stops (from the plain version's npix on the hitter columns,
+    where every pixel not yet stopped applies a live pair) are checked to
+    be what the frame promises."""
+    w = h = 32
+    table, tile_start, planted, hitters, starts = unit_split_frame(
+        route, nch, device)
+    units = check_schedule(tile_start, table.shape[1], route.backward)
+    tile1 = sorted(units[units[:, 0] == 1][:, 2].tolist())
+    if tile1 != starts or int((units[:, 0] == 3).sum()) != 1:
+        raise AssertionError(f"{route.backward}: unit schedule {tile1}")
+    fwd = route.fwd(table, tile_start, width=w, height=h, nch=nch)
+    cot = _cotangent(4, nch, device, 5, planes=route is SURFEL)
+    bkw = {"with_absgrad": True} if route is GAUSS else {}
+    chk = check_backward(route, table, tile_start, fwd, cot, w, h, nch,
+                         **bkw)
+    out = {f"{route.backward}_units_err": chk["max_abs_err"]}
+    log(f"  {route.backward} unit split: schedule equal to plain; max abs "
+        f"err {chk['max_abs_err']:.3e}, row-relative {chk['row_rel']:.3e}, "
+        f"relative to the entries' scales "
+        f"{float(chk['scale_rel'].max()):.3e}; deterministic")
+    npix = chk["npix"][hitters].long().tolist()
+    live = {s: max(n for c, n in zip(hitters, npix) if s <= c < e)
+            for s, e in zip(starts[1:], starts[2:] + [starts[-1] + UNIT])}
+    first_stop = next(c for c, n in zip(hitters, npix) if n < 256)
+    if not (first_stop < starts[2] and live[starts[3]] > 0
+            and live[starts[4]] == 0 and len(set(npix)) >= 8):
+        raise AssertionError(f"{route.backward}: the frame's stops miss "
+                             f"their units (first stop {first_stop}, "
+                             f"live per unit {live})")
+    log(f"  {route.backward} unit split frame: tile 1 units at {starts}, "
+        f"first stop at column {first_stop}, most live pixels per unit "
+        f"{live}, {len(set(npix))} distinct counts, planted {planted}")
     return out
 
 
@@ -741,18 +910,20 @@ def loss_cotangent(fr: Frame, loss_fn) -> torch.Tensor:
 
 def kernel_records(scene: str, fr: Frame, device: torch.device,
                    scale: Scale, launches: dict, *, cot=None,
-                   per_step: int | None = None, **bkw) -> list[dict]:
+                   per_step: int | None = None, backward_only: bool = False,
+                   **bkw) -> list[dict]:
     """Expand and the route's kernels against their plain versions at this
     frame's shapes, with their times, the plain versions' times and their
-    bounds: expand and forward, and the backward (with ``bkw``) on the
-    cotangent tiles ``cot`` when given. One record per kernel, tagged with
-    the scene."""
+    bounds: expand and forward unless ``backward_only``, and the backward
+    (with ``bkw``) on the cotangent tiles ``cot`` when given, after its
+    schedule on the card is held against its plain version. One record per
+    kernel, tagged with the scene."""
     route, nch = fr.route, fr.nch
     w, h = fr.cam.width, fr.cam.height
     cap, table, tile_start = fr.cap, fr.table, fr.tile_start
     kw = dict(width=w, height=h, nch=nch)
     it = scale.timing_iters * 5
-    ex = check_expand(fr.pp, cap, w, h)
+    # the forward's check also counts the pairs that the bounds charge
     fw_err, counts, reads = check_forward(route, table, tile_start, w, h,
                                           nch)
     n = fr.pp.u.shape[0]
@@ -763,8 +934,8 @@ def kernel_records(scene: str, fr: Frame, device: torch.device,
     # the instance rows this data needs read (each tile up to its last
     # pixel's stop) and the tile ranges
     read_bytes = reads * (route.inst_rows + nch) * 4 + (num_tiles + 1) * 4
-    rows = [
-        ("expand", ex["max_abs_err"],
+    rows = [] if backward_only else [
+        ("expand", check_expand(fr.pp, cap, w, h)["max_abs_err"],
          time_ms(lambda: B.expand_instances(fr.pp, cap, width=w, height=h),
                  device, it),
          time_ms(lambda: B.expand_instances_plain(
@@ -779,6 +950,7 @@ def kernel_records(scene: str, fr: Frame, device: torch.device,
          read_bytes + 8 * tile_bytes, route.fwd_ops(counts, nch)),
     ]
     if cot is not None:
+        units = check_schedule(tile_start, table.shape[1], scene)
         fwd = route.fwd(table, tile_start, **kw)
         chk = check_backward(route, table, tile_start, fwd, cot, w, h, nch,
                              **bkw)
@@ -796,11 +968,14 @@ def kernel_records(scene: str, fr: Frame, device: torch.device,
             route.bwd_ops(counts, nch, **bkw),
             {"max_rel_err": chk["row_rel"],
              "max_scale_rel_err": float(chk["scale_rel"].max()),
-             "outlier_cols": chk["outlier_cols"], "nch": nch, **bkw}))
+             "outlier_cols": chk["outlier_cols"], "nch": nch,
+             "units": int((units[:, 0] >= 0).sum()),
+             "longest_tile": int((tile_start[1:] - tile_start[:-1]).max()),
+             **bkw}))
     recs = _records(scene, rows, launches, per_step)
     log(f"  {scene} kernels at {w}x{h}, nch {nch}, {n} splats ({owning} "
-        f"with instances), capacity {cap}, demand {ex['demand']}, {kept} "
-        f"instances kept, {reads} read, pairs {counts._asdict()}: "
+        f"with instances), capacity {cap}, demand {int(fr.pp.total)}, "
+        f"{kept} instances kept, {reads} read, pairs {counts._asdict()}: "
         + "; ".join(
             f"{r['name']} {r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms, "
             f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}, err "
@@ -817,7 +992,8 @@ def stage_times(fr: Frame, device: torch.device, scale: Scale,
                 recs: list[dict], cot=None, loss_fn=sum_loss,
                 **bkw) -> dict:
     """Mean ms of each stage of one full frame, each timed alone on its own
-    inputs; the kernels' times are those of ``recs``. With ``cot``, also
+    inputs; the kernels' times are those of ``recs``, or timed here for a
+    kernel that ``recs`` lacks. With ``cot``, also
     the stages of the backward: the backward kernel, the reduce, autograd
     through projection and SH, and one whole render forward + backward of
     ``loss_fn`` (``fr`` must then be made with ``grad``)."""
@@ -831,11 +1007,13 @@ def stage_times(fr: Frame, device: torch.device, scale: Scale,
     stages = {
         "project+sh": lambda: route.inputs(fr.params, fr.cam, geometry),
         "prep": lambda: B.prep(*fr.prep_args, w, h, 16, 64),
-        "expand": kernel_ms["expand"],
+        "expand": kernel_ms.get("expand", lambda: B.expand_instances(
+            fr.pp, fr.cap, width=w, height=h)),
         "sort+ranges": lambda: B.sort_instances(
             fr.keys, fr.owners, num_tiles=num_tiles, depth_bits=depth_bits),
         "table": lambda: route.build_table(*tins, fr.inst),
-        route.forward: kernel_ms[route.forward],
+        route.forward: kernel_ms.get(route.forward, lambda: route.fwd(
+            fr.table, fr.tile_start, width=w, height=h, nch=fr.nch)),
     }
     if cot is not None:
         fwd = route.fwd(fr.table, fr.tile_start, width=w, height=h,
@@ -1236,6 +1414,9 @@ def phase_training(device: torch.device, scale: Scale) -> list[dict]:
 
     if scale.demo_iters:
         records += train_demo(device, scale)
+    # (e) the trained 3DGS model, whose longest tile never stops
+    records += model_record(device, scale, GAUSS, MODEL, "(e)",
+                            backward_only=True, with_absgrad=False)
     return records
 
 
@@ -1315,39 +1496,43 @@ def surfel_kernels_vs_plain(params, cam, device: torch.device) -> dict:
     return out
 
 
-def surfel_model_record(device: torch.device, scale: Scale) -> list[dict]:
-    """(c) The repo's trained 2DGS model (``runs/tpu_bricks_2dgs2``) as
-    exact surfels at the frame size: one ``render_surfels`` forward and
-    backward with its launch counts, the surfel kernels against their
-    plain versions and the stage breakdown."""
-    params = _load(MODEL_2DGS, device, scale)
+def model_record(device: torch.device, scale: Scale, route: Route,
+                 path: Path, label: str, backward_only: bool = False,
+                 **bkw) -> list[dict]:
+    """A trained model of the repo on ``route`` at the frame size, view 0
+    of the app's orbit: one render forward and backward of ``sum_loss``
+    with its launch counts (each kernel of the route once), its kernels
+    against their plain versions with that loss's cotangent (the backward
+    alone with ``backward_only``), and the stage breakdown; ``bkw`` goes
+    to the render and the backward."""
+    params = _load(path, device, scale)
+    name = path.parent.name
+    kernels = SURFEL_KERNELS if route is SURFEL else TRAIN_KERNELS
     cam = orbit_for_model(params, 1, radius=4.0, width=scale.width,
                           height=scale.height, fov=50.0)[0]
     with torch.no_grad():
-        demand = int(SR.render_surfels(
-            params, cam, instance_capacity=scale.probe_capacity
-        ).num_instances)
+        demand = int(route.render(params, cam, scale.probe_capacity, True,
+                                  **bkw).num_instances)
     icap = auto_icap(demand)
     sync(device)
     _build.reset_launches()
-    out, grads = render_forward_backward(SURFEL, params, cam, icap)
+    out, grads = render_forward_backward(route, params, cam, icap, **bkw)
     sync(device)
     launches = dict(_build.LAUNCHES)
-    log(f"  (c) tpu_bricks_2dgs2 render forward + backward at "
+    log(f"  {label} {name} render forward + backward at "
         f"{cam.width}x{cam.height}: launches {launches}")
-    _check_frame(out.image.detach(), out.alpha.detach(), "tpu_bricks_2dgs2")
+    _check_frame(out.image.detach(), out.alpha.detach(), name)
     if not all(bool(torch.isfinite(g).all()) for g in grads if g is not None):
-        raise AssertionError("tpu_bricks_2dgs2: non-finite gradients")
-    if device.type == "cuda" and any(launches[k] != 1
-                                     for k in SURFEL_KERNELS):
-        raise AssertionError(f"tpu_bricks_2dgs2: launches {launches}")
-    fr = make_frame(params, cam, icap, grad=True, route=SURFEL)
+        raise AssertionError(f"{name}: non-finite gradients")
+    if device.type == "cuda" and any(launches[k] != 1 for k in kernels):
+        raise AssertionError(f"{name}: launches {launches}")
+    fr = make_frame(params, cam, icap, grad=True, route=route)
     cot = loss_cotangent(fr, sum_loss)
-    recs = kernel_records("tpu_bricks_2dgs2", fr, device, scale, launches,
-                          cot=cot)
-    stages = stage_times(fr, device, scale, recs, cot)
-    log(f"  (c) {cam.width}x{cam.height} surfel render forward + backward "
-        f"stages (ms, each timed alone): "
+    recs = kernel_records(name, fr, device, scale, launches, cot=cot,
+                          backward_only=backward_only, **bkw)
+    stages = stage_times(fr, device, scale, recs, cot, **bkw)
+    log(f"  {label} {cam.width}x{cam.height} {name} render forward + "
+        f"backward stages (ms, each timed alone): "
         + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
     for r in recs:
         r.update(demand=demand, icap=icap)
@@ -1363,7 +1548,7 @@ def phase_training_2dgs(device: torch.device, scale: Scale) -> list[dict]:
     records += bench_records(
         f"train2d_{scale.train_splats}_{scale.train_res}",
         train_bench(device, scale, model_type=1), SURFEL, device, scale)
-    records += surfel_model_record(device, scale)
+    records += model_record(device, scale, SURFEL, MODEL_2DGS, "(c)")
     if scale.demo_iters:
         records += train_demo(device, scale, ("--model_type", "1"),
                               "demo2d", SURFEL_KERNELS)

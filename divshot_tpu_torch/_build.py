@@ -26,8 +26,10 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "divshot_tpu_torch"
+# -Xptxas -v: each kernel's registers, shared memory and spills, kept
+# beside the library (``ptxas_report``)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 LAUNCHES = {"expand": 0, "forward": 0, "backward": 0, "surfel_forward": 0,
             "surfel_backward": 0}
@@ -44,6 +46,8 @@ _SIGNATURES = {
                                _I32, ctypes.c_float, _P, _P],
     "divshot_surfel_backward": [_P, ctypes.c_int64, _P, _I32, _I32, _I32,
                                 _I32, ctypes.c_float, _P, _P, _P, _P],
+    "divshot_backward_schedule": [_P, _I32, ctypes.c_int64, ctypes.c_int64,
+                                  _P, _P],
 }
 
 
@@ -89,8 +93,25 @@ def build() -> tuple[Path, float]:
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed ({res.returncode}): {' '.join(cmd)}"
                            f"\n{res.stderr}")
+    so.with_suffix(".ptxas.txt").write_text(res.stderr)
     os.replace(tmp, so)
     return so, time.perf_counter() - t0
+
+
+def ptxas_report(so: Path) -> list[str]:
+    """Per kernel of the library ``so``, from the ``-Xptxas -v`` output of
+    its build: registers, static shared memory, stack and spills."""
+    out, name = [], None
+    path = so.with_suffix(".ptxas.txt")
+    for line in (path.read_text().splitlines() if path.exists() else []):
+        if "Compiling entry function" in line:
+            name, spill = line.split("'")[1], ""
+        elif name and "spill stores" in line:
+            spill = line.strip()
+        elif name and "Used" in line and "registers" in line:
+            out.append(f"{name}: {line.split(':', 1)[1].strip()}; {spill}")
+            name = None
+    return out
 
 
 @functools.lru_cache(maxsize=None)

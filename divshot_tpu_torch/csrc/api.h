@@ -29,7 +29,8 @@ int divshot_forward(const float* table, int64_t num_instances,
 
 // The VJP of divshot_forward: per-instance gradient rows
 // [du dv da db dc dop dch.. |du| |dv| npix] of shape (9 + nch, I) from the
-// cotangent and forward tiles (T, 8, px): see backward.cu.
+// cotangent and forward tiles (T, 8, px), each tile cut into units of at
+// most units::kUnit instances (units.cuh): see backward.cu.
 int divshot_backward(const float* table, int64_t num_instances,
                      const int32_t* tile_start, int32_t num_tiles,
                      int32_t tiles_x, int32_t tile_size, int32_t nch,
@@ -45,12 +46,21 @@ int divshot_surfel_forward(const float* table, int64_t num_instances,
 
 // The VJP of divshot_surfel_forward: per-instance rows
 // [dT(9) dzp(3) dc2d(2) dop dch.. ds_x ds_y |ds_x| |ds_y| npix] of shape
-// (20 + nch, I): see surfel_backward.cu.
+// (20 + nch, I), in the same units: see surfel_backward.cu.
 int divshot_surfel_backward(const float* table, int64_t num_instances,
                             const int32_t* tile_start, int32_t num_tiles,
                             int32_t tiles_x, int32_t tile_size, int32_t nch,
                             float t_eps, const float* cot, const float* fwd,
                             float* grads, void* stream);
+
+// The work split of the two backward kernels: for each of the `blocks`
+// blocks of a backward grid over these tiles, the unit that units::find
+// gives it, as rows (tile, s0, start, end) of `out` (blocks x 4), tile -1
+// for a block without one; `blocks` must be units::grid_blocks: see
+// units.cu.
+int divshot_backward_schedule(const int32_t* tile_start, int32_t num_tiles,
+                              int64_t num_instances, int64_t blocks,
+                              int64_t* out, void* stream);
 
 #ifdef __cplusplus
 }

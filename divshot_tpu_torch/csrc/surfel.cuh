@@ -13,7 +13,10 @@
 // The pair is culled unless |p2| > 1e-9, a >= 1/255 and z > 0.01, each
 // compare written so that a NaN fails it. Every product and sum is
 // explicitly rounded (no fused multiply-add) in the order of the plain
-// PyTorch version (raster/surfel_raster.py, _chunk_terms).
+// PyTorch version (raster/surfel_raster.py, _chunk_terms). With kAll the
+// function evaluates every field without branching and only then returns
+// whether the pair passes the culls, so that a caller can interleave
+// several pairs; the fields of a pair that passes are the same.
 #pragma once
 #include <cuda_runtime.h>
 
@@ -34,6 +37,7 @@ struct Pair {
   bool sel;  // rho took the 3-D branch
 };
 
+template <bool kAll = false>
 __device__ __forceinline__ bool eval_pair(const float* __restrict__ c,
                                           int stride, int j, float x,
                                           float y, Pair& s) {
@@ -50,7 +54,8 @@ __device__ __forceinline__ bool eval_pair(const float* __restrict__ c,
                              __fmul_rn(s.hu[0], s.hv[2]));
   s.p2 = __fsub_rn(__fmul_rn(s.hu[0], s.hv[1]),
                    __fmul_rn(s.hu[1], s.hv[0]));
-  if (!(fabsf(s.p2) > kPzMin)) return false;
+  const bool p2_ok = fabsf(s.p2) > kPzMin;
+  if (!kAll && !p2_ok) return false;
   s.u = __fdiv_rn(p0, s.p2);
   s.v = __fdiv_rn(p1, s.p2);
   const float rho3d = __fadd_rn(__fmul_rn(s.u, s.u), __fmul_rn(s.v, s.v));
@@ -65,9 +70,10 @@ __device__ __forceinline__ bool eval_pair(const float* __restrict__ c,
                   t[(kRowZp + 2) * stride]);
   s.G = expf(__fmul_rn(-0.5f, rho));
   s.a = __fmul_rn(t[kRowOp * stride], s.G);
-  if (!(s.a >= kAlphaMin) || !(s.z > kZMin)) return false;
+  const bool ok = p2_ok && s.a >= kAlphaMin && s.z > kZMin;
+  if (!kAll && !ok) return false;
   s.alpha = fminf(s.a, kAlphaMax);
-  return true;
+  return ok;
 }
 
 }  // namespace surfel

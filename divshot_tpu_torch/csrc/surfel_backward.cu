@@ -27,108 +27,167 @@
 //   Selects, never a multiplication by a mask, so an edge-on surfel's
 //   huge u does not turn an unselected branch into NaN. Output
 //   (20 + nch, I): every column of the tile's range is written once
-//   (zeros past the block's stop); columns at or past tile_start[T] are
-//   not written.
+//   (zeros past the stop of every pixel); columns at or past tile_start[T]
+//   are not written.
 // Bound on the H100: the float32 arithmetic of the (pixel, instance) pairs
 //   before each pixel's stop (~45 a pair to recompute, ~110 more for an
-//   applied pair), plus the per-instance block reductions of 20 + nch
-//   rows.
-// Design: one block per tile, one thread per pixel, as backward.cu. A
-//   chunk of kChunk instance columns is staged in shared memory; every
-//   thread walks it in order, each instance's per-pixel terms are reduced
-//   over the block by warp shuffles (skipped when no lane of the warp
-//   applied the instance), the warp partials go to shared memory and are
-//   summed in warp order. No float atomics: an instance belongs to one
-//   tile, so its column is written once, deterministically. The TPU
+//   applied pair), and on a tile whose pixels never stop the forward's
+//   walk of that tile (the deepest unit's prefix).
+// Design, as backward.cu's (units.cuh): one thread per pixel; a warp that
+//   applied the instance transposes and sums its 19 + nch reduced rows,
+//   padded to 32, in 31 shuffles (not 5 per row), the channels last so
+//   that no index depends on nch; npix is a ballot count; a warp stores
+//   its partials only for an instance it applied, its 64-bit applied mask
+//   telling the cross-warp sum which to read; kChunk = 64 columns a pass,
+//   the next pass's copied in with cp.async; a long tile is cut into
+//   units of at most kUnit instances, each in its own block, which
+//   first re-walks the tile's prefix with the forward's operations alone,
+//   kGroup columns at a time (eval_pair<true>, without branches, so that
+//   they interleave), the same rounded operations in the same order, so
+//   the unit's entry state is bitwise the sequential walk's. No float
+//   atomics: an instance's column is written once, the warp partials
+//   summed in warp order, so the result is deterministic. The TPU
 //   kernel's bf16 prefix matmuls, `tri` matrices, DMA double buffers and
 //   per-tile boundary blocks are gone. A culled pair (NaN rows included)
 //   adds exact zeros.
 #include <cuda_runtime.h>
 #include "api.h"
 #include "surfel.cuh"
+#include "units.cuh"
 
 namespace {
 
+using units::kChunk;
+using units::kFull;
+using units::kGroup;
+
 constexpr int kMaxCh = 5;
-constexpr int kMaxRows = 20 + kMaxCh;  // gradient rows at nch = 5
-constexpr int kChunk = 32;             // instances staged per pass
-constexpr unsigned kFull = 0xffffffffu;
+constexpr int kRows = 32;   // reduced rows dT dzp dc2d dop ds |ds| dch..
+                            // (19 + nch), padded to a power of two
+
+struct Pixel {
+  float x, y, cf, g_z, g_z2, gt_tfin, T, c_dot;
+  float g[kMaxCh];
+  bool done;
+};
+
+// cdot = sum_ch g_ch ch of column j of the staged chunk.
+__device__ __forceinline__ float eval_cdot(const float* __restrict__ chunk,
+                                           int j, int nch, const Pixel& p) {
+  float cdot = 0.0f;
+#pragma unroll
+  for (int ch = 0; ch < kMaxCh; ++ch)
+    if (ch < nch)
+      cdot = __fadd_rn(cdot, __fmul_rn(
+          p.g[ch], chunk[(surfel::kRowCh + ch) * kChunk + j]));
+  return cdot;
+}
 
 __global__ void surfel_backward_kernel(const float* __restrict__ table,
                                        int64_t num_instances,
                                        const int32_t* __restrict__ tile_start,
-                                       int32_t tiles_x, int32_t tile_size,
-                                       int32_t nch, float t_eps,
+                                       int32_t num_tiles, int32_t tiles_x,
+                                       int32_t tile_size, int32_t nch,
+                                       float t_eps,
                                        const float* __restrict__ cot,
                                        const float* __restrict__ fwd,
                                        float* __restrict__ grads) {
+  units::Unit u;
+  if (!units::find(blockIdx.x, tile_start, num_tiles, num_instances, u))
+    return;
   extern __shared__ float smem[];
-  const int t = blockIdx.x;
-  const int p = threadIdx.x;
-  const int npx = blockDim.x;
-  const int nwarps = npx >> 5;
-  const int warp = p >> 5;
-  const int lane = p & 31;
+  const int tid = threadIdx.x;
+  const int npx = tile_size * tile_size;
+  const int nwarps = blockDim.x >> 5;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
   const int rows = surfel::kRowCh + nch;
   const int ngrad = 20 + nch;
-  float* chunk = smem;                       // rows x kChunk
-  float* part = smem + rows * kChunk;        // nwarps x ngrad x kChunk
-  const int32_t s0 = tile_start[t];
-  const int32_t e0 = tile_start[t + 1];
+  // per warp the 19 + nch reduced rows dT dzp dc2d dop ds |ds| dch..
+  float* part = smem + 2 * rows * kChunk;
+  float* npart = part + nwarps * (19 + nch) * kChunk;   // nwarps x kChunk
+  unsigned long long* masks =
+      reinterpret_cast<unsigned long long*>(npart + nwarps * kChunk);
 
-  const float px = (float)((t % tiles_x) * tile_size + p % tile_size) + 0.5f;
-  const float py = (float)((t / tiles_x) * tile_size + p / tile_size) + 0.5f;
-
-  // this pixel's cotangents and forward results
-  const float* cp = cot + (int64_t)t * 8 * npx + p;
-  const float* fp = fwd + (int64_t)t * 8 * npx + p;
-  float g[kMaxCh];
-  float cf = 0.0f;
+  // this thread's pixel, its cotangents and forward results
+  const int t = u.tile;
+  Pixel p;
+  p.x = (float)((t % tiles_x) * tile_size + tid % tile_size) + 0.5f;
+  p.y = (float)((t / tiles_x) * tile_size + tid / tile_size) + 0.5f;
+  const float* cp = cot + (int64_t)t * 8 * npx + tid;
+  const float* fp = fwd + (int64_t)t * 8 * npx + tid;
+  p.cf = 0.0f;
 #pragma unroll
   for (int ch = 0; ch < kMaxCh; ++ch) {
-    g[ch] = ch < nch ? cp[ch * npx] : 0.0f;
-    if (ch < nch) cf += g[ch] * fp[ch * npx];
+    p.g[ch] = ch < nch ? cp[ch * npx] : 0.0f;
+    if (ch < nch) p.cf += p.g[ch] * fp[ch * npx];
   }
-  const float g_z = cp[5 * npx];
-  const float g_z2 = cp[6 * npx];
-  const float gt_tfin = cp[7 * npx] * fp[7 * npx];
+  p.g_z = cp[5 * npx];
+  p.g_z2 = cp[6 * npx];
+  p.gt_tfin = cp[7 * npx] * fp[7 * npx];
+  p.T = 1.0f;
+  p.c_dot = 0.0f;
+  p.done = false;
 
-  float T = 1.0f;
-  float c_dot = 0.0f;   // sum of w cdot over the applied instances so far
-  bool done = false;
-
-  for (int32_t base = s0; base < e0; base += kChunk) {
-    const int n = min(kChunk, e0 - base);
-    for (int i = p; i < rows * n; i += npx) {
-      const int r = i / n, j = i - r * n;
-      chunk[r * kChunk + j] = table[(int64_t)r * num_instances + base + j];
+  const units::Passes passes(u);
+  units::stage(smem, table, num_instances, rows, passes.base(0),
+               passes.count(0));
+  for (int i = 0; i < passes.n_total; ++i) {
+    const int64_t base = passes.base(i);
+    const int n = passes.count(i);
+    const float* chunk = smem + (i & 1) * rows * kChunk;
+    if (i + 1 < passes.n_total) {
+      units::stage(smem + ((i + 1) & 1) * rows * kChunk, table,
+                   num_instances, rows, passes.base(i + 1),
+                   passes.count(i + 1));
+      __pipeline_wait_prior(1);
+    } else {
+      __pipeline_wait_prior(0);
     }
     __syncthreads();
-    for (int j = 0; j < n; ++j) {
-      float val[kMaxRows];
+    if (passes.prefix(i)) {
+      // the tile's prefix: the forward's operations alone, kGroup columns
+      // at a time: their pair evaluations first, without branches, so that
+      // they interleave; then, in order, the pairs that pass the culls
+      for (int j = 0; j < n; j += kGroup) {
+        surfel::Pair e[kGroup];
+        bool ok[kGroup];
 #pragma unroll
-      for (int k = 0; k < kMaxRows; ++k) val[k] = 0.0f;
-      bool applied = false;
-      surfel::Pair s;
-      if (!done && surfel::eval_pair(chunk, kChunk, j, px, py, s)) {
-        const float one_m = __fsub_rn(1.0f, s.alpha);
-        const float q = __fmul_rn(T, one_m);
-        if (q < t_eps) {
-          done = true;
-        } else {
-          applied = true;
+        for (int jj = 0; jj < kGroup; ++jj)
+          ok[jj] = surfel::eval_pair<true>(chunk, kChunk, j + jj, p.x, p.y,
+                                           e[jj]);
+#pragma unroll
+        for (int jj = 0; jj < kGroup; ++jj) {
+          if (j + jj >= n || p.done || !ok[jj]) continue;
+          float t_ex, w;
+          units::advance(true, e[jj].alpha, __fsub_rn(1.0f, e[jj].alpha),
+                         eval_cdot(chunk, j + jj, nch, p), t_eps, p.T,
+                         p.c_dot, p.done, t_ex, w);
+        }
+      }
+    } else {
+      unsigned long long applied_mask = 0ull;
+      for (int j = 0; j < n; ++j) {
+        float acc[kRows];
+#pragma unroll
+        for (int k = 0; k < kRows; ++k) acc[k] = 0.0f;
+        bool applied = false, live = false;
+        surfel::Pair s;
+        float one_m, cdot, t_ex, w;
+        if (!p.done && surfel::eval_pair(chunk, kChunk, j, p.x, p.y, s)) {
+          one_m = __fsub_rn(1.0f, s.alpha);
+          cdot = eval_cdot(chunk, j, nch, p);
+          applied = units::advance(true, s.alpha, one_m, cdot, t_eps, p.T,
+                                   p.c_dot, p.done, t_ex, w);
+        }
+        if (applied) {
+          // gradient terms
           const float* col = chunk + j;
-          const float w = __fmul_rn(s.alpha, T);
-          float cdot = 0.0f;
-#pragma unroll
-          for (int ch = 0; ch < kMaxCh; ++ch)
-            if (ch < nch)
-              cdot += g[ch] * col[(surfel::kRowCh + ch) * kChunk];
-          c_dot += w * cdot;
-          const bool live = s.a < surfel::kAlphaMax;
+          live = s.a < surfel::kAlphaMax;
           const float d_alpha =
-              live ? cdot * T + (gt_tfin - (cf - c_dot)) / one_m : 0.0f;
-          const float d_z = w * (g_z + 2.0f * s.z * g_z2);
+              live ? cdot * t_ex + (p.gt_tfin - (p.cf - p.c_dot)) / one_m
+                   : 0.0f;
+          const float d_z = w * (p.g_z + 2.0f * s.z * p.g_z2);
           const float g_rho = -0.5f * d_alpha * s.alpha;
           const float d_u = (s.sel ? 2.0f * s.u * g_rho : 0.0f)
                             + col[surfel::kRowZp * kChunk] * d_z;
@@ -147,75 +206,63 @@ __global__ void surfel_backward_kernel(const float* __restrict__ table,
                                 gp2 * s.hu[0] - gp0 * s.hu[2],
                                 gp0 * s.hu[1] - gp1 * s.hu[0]};
 #pragma unroll
-          for (int i = 0; i < 3; ++i) {
-            val[i] = -dhu[i];
-            val[3 + i] = -dhv[i];
-            val[6 + i] = px * dhu[i] + py * dhv[i];
+          for (int r = 0; r < 3; ++r) {
+            acc[r] += -dhu[r];
+            acc[3 + r] += -dhv[r];
+            acc[6 + r] += p.x * dhu[r] + p.y * dhv[r];
           }
-          val[9] = s.u * d_z;
-          val[10] = s.v * d_z;
-          val[11] = d_z;
-          val[12] = -d_dx;
-          val[13] = -d_dy;
-          val[14] = d_alpha * s.G;
+          acc[9] += s.u * d_z;
+          acc[10] += s.v * d_z;
+          acc[11] += d_z;
+          acc[12] += -d_dx;
+          acc[13] += -d_dy;
+          acc[14] += d_alpha * s.G;
           const float t6 = col[6 * kChunk], t7 = col[7 * kChunk],
                       t8 = col[8 * kChunk];
           const float ds_x = -((t6 * dhu[0] + t7 * dhu[1] + t8 * dhu[2])
                                + d_dx);
           const float ds_y = -((t6 * dhv[0] + t7 * dhv[1] + t8 * dhv[2])
                                + d_dy);
-          // rows 15.. hold the channels, then ds |ds| npix (a constant
-          // index per unrolled k, so val stays in registers)
+          acc[15] += ds_x;
+          acc[16] += ds_y;
+          acc[17] += fabsf(ds_x);
+          acc[18] += fabsf(ds_y);
 #pragma unroll
-          for (int k = surfel::kRowCh; k < kMaxRows; ++k) {
-            const int c = k - surfel::kRowCh;
-            if (c < nch) val[k] = g[c < kMaxCh ? c : 0] * w;
-            if (c == nch) val[k] = ds_x;
-            if (c == nch + 1) val[k] = ds_y;
-            if (c == nch + 2) val[k] = fabsf(ds_x);
-            if (c == nch + 3) val[k] = fabsf(ds_y);
-            if (c == nch + 4) val[k] = live ? 1.0f : 0.0f;
-          }
-          T = q;
+          for (int ch = 0; ch < kMaxCh; ++ch) acc[19 + ch] += p.g[ch] * w;
+          // end of the gradient terms
+        }
+        if (__any_sync(kFull, applied)) {
+          const int count = __popc(__ballot_sync(kFull, live));
+          const float v = units::warp_transpose_sum<kRows>(acc, lane);
+          if (lane < 19 + nch)
+            part[(warp * (19 + nch) + lane) * kChunk + j] = v;
+          if (lane == 0) npart[warp * kChunk + j] = (float)count;
+          applied_mask |= 1ull << j;
         }
       }
-      // block reduction of this instance's terms: warp shuffles, then one
-      // partial per warp in shared memory
-      if (__any_sync(kFull, applied)) {
-#pragma unroll
-        for (int k = 0; k < kMaxRows; ++k) {
-          if (k < ngrad) {
-            float v = val[k];
-#pragma unroll
-            for (int off = 16; off > 0; off >>= 1)
-              v += __shfl_xor_sync(kFull, v, off);
-            val[k] = v;
-          }
-        }
-      }
-      if (lane == 0) {
-#pragma unroll
-        for (int k = 0; k < kMaxRows; ++k)
-          if (k < ngrad) part[(warp * ngrad + k) * kChunk + j] = val[k];
+      if (lane == 0) masks[warp] = applied_mask;
+      __syncthreads();
+      // sum the partials of the warps that applied each instance, in warp
+      // order, and write each column once
+      for (int idx = tid; idx < ngrad * n; idx += blockDim.x) {
+        const int k = idx / n, j = idx - k * n;
+        // the reduced row of output row k (-1: npix)
+        const int r = k < 15 ? k : k < 15 + nch ? k + 4
+                      : k < ngrad - 1 ? k - nch : -1;
+        const float* src = r >= 0 ? part + r * kChunk + j : npart + j;
+        const int stride = r >= 0 ? (19 + nch) * kChunk : kChunk;
+        float v = 0.0f;
+        for (int w = 0; w < nwarps; ++w)
+          if ((masks[w] >> j) & 1ull) v += src[w * stride];
+        grads[(int64_t)k * num_instances + base + j] = v;
       }
     }
-    __syncthreads();
-    // sum the warp partials in warp order and write each column once
-    for (int i = p; i < ngrad * n; i += npx) {
-      const int k = i / n, j = i - k * n;
-      float v = 0.0f;
-      for (int w = 0; w < nwarps; ++w) v += part[(w * ngrad + k) * kChunk + j];
-      grads[(int64_t)k * num_instances + base + j] = v;
-    }
-    // also the barrier before the next chunk overwrites shared memory
-    if (__syncthreads_and(done)) {
-      const int32_t m = e0 - base - n;   // columns after the stop
-      for (int64_t i = p; i < (int64_t)ngrad * m; i += npx) {
-        const int k = (int)(i / m);
-        const int32_t j = (int32_t)(i - (int64_t)k * m);
-        grads[(int64_t)k * num_instances + base + n + j] = 0.0f;
-      }
-      break;
+    // also the barrier before the next pass overwrites shared memory
+    if (__syncthreads_and(p.done)) {
+      __pipeline_wait_prior(0);
+      units::zero_columns(grads, num_instances, ngrad,
+                          passes.prefix(i) ? u.start : base + n, u.end);
+      return;
     }
   }
 }
@@ -230,20 +277,22 @@ extern "C" int divshot_surfel_backward(const float* table,
                                        float t_eps, const float* cot,
                                        const float* fwd, float* grads,
                                        void* stream) {
-  if (num_tiles <= 0) return (int)cudaSuccess;
+  if (num_tiles <= 0 || num_instances <= 0) return (int)cudaSuccess;
   const int threads = tile_size * tile_size;
+  if (threads % 32 || threads > 1024)
+    return (int)cudaErrorInvalidValue;
   const size_t smem =
-      sizeof(float) * (size_t)kChunk *
-      ((surfel::kRowCh + nch) + (size_t)(threads / 32) * (20 + nch));
+      units::smem_bytes(surfel::kRowCh + nch, 19 + nch, threads / 32);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         surfel_backward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  surfel_backward_kernel<<<num_tiles, threads, smem,
+  const int64_t blocks = units::grid_blocks(num_tiles, num_instances);
+  surfel_backward_kernel<<<(unsigned)blocks, threads, smem,
                            (cudaStream_t)stream>>>(
-      table, num_instances, tile_start, tiles_x, tile_size, nch, t_eps, cot,
-      fwd, grads);
+      table, num_instances, tile_start, num_tiles, tiles_x, tile_size, nch,
+      t_eps, cot, fwd, grads);
   return (int)cudaGetLastError();
 }

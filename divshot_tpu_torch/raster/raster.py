@@ -268,17 +268,19 @@ def rasterize_backward(table: torch.Tensor, tile_start: torch.Tensor,
     ``g_T = g_alpha - g_img . bg`` in row 7; ``fwd`` is the forward's
     output on the same table. The ``|du|``/``|dv|`` rows are zero unless
     ``with_absgrad``; ``npix`` counts the pixels whose alpha gradient an
-    instance received. The kernel leaves the columns at or past
-    ``tile_start[-1]`` unwritten (the plain version zeroes them)."""
+    instance received. The kernel walks each tile in units of at most
+    ``units.UNIT`` instances, one block each (``raster/units.py``). It
+    leaves the columns at or past ``tile_start[-1]`` unwritten (the plain
+    version zeroes them)."""
     if table.device.type == "cpu":
         return rasterize_backward_plain(
             table, tile_start, cot, fwd, width=width, height=height,
             tile_size=tile_size, nch=nch, t_eps=t_eps,
             with_absgrad=with_absgrad)
+    if tile_size * tile_size % 32:
+        raise ValueError("tile_size**2 must be a multiple of 32 (warps)")
     tiles_x, num_tiles, px = _check_kernel_inputs(
         table, tile_start, width, height, tile_size, nch)
-    if px % 32:
-        raise ValueError("tile_size**2 must be a multiple of 32 (warps)")
     for name, t in (("cot", cot), ("fwd", fwd)):
         _build.require(t, name, torch.float32, (num_tiles, 8, px),
                        table.device)

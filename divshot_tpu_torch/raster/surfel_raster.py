@@ -157,8 +157,9 @@ def surfel_backward(table: torch.Tensor, tile_start: torch.Tensor,
     of z and z^2 in rows 5 and 6 and ``g_T = g_alpha - g_rgb . bg`` in row
     7; ``fwd`` is the forward's output on the same table. ``npix`` counts
     the pixels whose alpha gradient an instance received. The kernel
-    leaves the columns at or past ``tile_start[-1]`` unwritten (the plain
-    version zeroes them)."""
+    walks each tile in units of at most ``units.UNIT`` instances, one
+    block each (``raster/units.py``). It leaves the columns at or past
+    ``tile_start[-1]`` unwritten (the plain version zeroes them)."""
     if table.device.type == "cpu":
         return surfel_backward_plain(table, tile_start, cot, fwd,
                                      width=width, height=height,

@@ -1,7 +1,8 @@
 """The port stands alone: with JAX, flax, PIL and ``divshot_tpu`` blocked,
 every module of ``divshot_tpu_torch`` imports and ``chip_smoke.py``'s
-kernel, viewer-path, training-path and 2DGS training-path phases run on
-the CPU at a tiny scale, with a ``kernels`` record for every kernel. Also checks on
+kernel (with the backward kernels' unit split), viewer-path, training-path
+and 2DGS training-path phases run on the CPU at a tiny scale, with a
+``kernels`` record for every kernel. Also checks on
 the port's files: no JAX or ``divshot_tpu`` import outside docstrings, no
 file over 200 KB, and the kernel build directory ignored by git."""
 
@@ -38,14 +39,16 @@ with contextlib.redirect_stdout(buf):
 out = buf.getvalue()
 assert '"ok"' not in out, out
 assert all(v == 0.0 for v in checks.values()), checks
-assert len(checks) == 9, checks
+assert len(checks) == 11, checks
+assert ("unit split frame: tile 1 units at [1366, 4096, 8192, 12288, 16384]"
+        in out)
 assert [(r["scene"], r["name"]) for r in records] == [
     (s, k) for s in ("tpu_bricks_mcmc", "random_1500")
     for k in ("expand", "forward")]
 assert [(r["scene"], r["name"]) for r in train] == [
     (s, k) for s in ("bars_adc+_64", "bars_mcmc_64", "train_500_64")
     for k in ("expand", "forward", "backward")] + [
-    ("random_1500", "backward")]
+    ("random_1500", "backward"), ("tpu_bricks_mcmc", "backward")]
 keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
 assert [(r["scene"], r["name"]) for r in train2d] == [
@@ -67,7 +70,9 @@ assert bwd["source"] == "divshot_tpu_torch/csrc/backward.cu"
 assert bwd["replaces"] == "divshot_tpu/raster/pallas_raster.py:437"
 assert "it_per_s" in bwd and "(a) adc+" in out and "(b) bench: 500 splats" in out
 assert [r["with_absgrad"] for r in train if r["name"] == "backward"] == [
-    True, False, False, False]
+    True, False, False, False, False]
+assert all(r["units"] >= 1 and r["longest_tile"] >= 1 for r in train + train2d
+           if "backward" in r["name"])
 assert all("launches_per_step" in r for r in train[:9])
 for m in %r:
     assert sys.modules.get(m) is None, m
