@@ -11,12 +11,14 @@ Phases, each a function of ``(device, scale)``:
    and print each kernel's registers, shared memory and spills;
 3. each kernel against its plain PyTorch version at a bounded size, with
    NaN instances in the inputs, and the backward at nch 3 and 7 with the
-   AbsGS rows on and off; each backward kernel on a synthetic frame whose
-   long tile is cut into five units (``unit_split_frame``: NaN, clamping
-   and edge-on columns on unit boundaries, pixels that stop inside an
-   earlier unit, a unit after every pixel's stop, a tile shorter than a
-   unit). Every backward check also launches the kernel twice and
-   requires bitwise-equal gradients;
+   AbsGS rows on and off; each forward and backward kernel on a synthetic
+   frame whose long tile is cut into five backward units and the
+   forward's cull segments (``unit_split_frame``: NaN, clamping and edge-on
+   columns on unit boundaries, pixels that stop inside an earlier unit, a
+   unit after every pixel's stop, a tile shorter than a unit), with the
+   forward's survivor mask written on the card held against its plain
+   cull pass. Every check launches the kernel twice and requires bitwise
+   equal results; the forwards equal their plain versions bitwise;
 4. the viewer path (``divshot_tpu_torch.apps.render``) at 1920x1080 on the
    repo's trained model ``runs/tpu_bricks_mcmc/point_cloud.ply`` and on a
    1M-splat random scene, with the launch counts that prove it went through
@@ -87,7 +89,8 @@ from divshot_tpu_torch.raster import surfel_raster as SR
 from divshot_tpu_torch.raster.render import (frame_inputs, render,
                                              render_fast)
 from divshot_tpu_torch.raster.units import (UNIT, backward_schedule,
-                                            backward_schedule_plain)
+                                            backward_schedule_plain,
+                                            forward_cull_plain, is_long)
 from divshot_tpu_torch.splat.gaussians import GaussianParams, init_from_points
 from divshot_tpu_torch.train.losses import photometric_loss
 from divshot_tpu_torch.train.trainer import (Dataset, Trainer, TrainState,
@@ -100,7 +103,6 @@ REPO = Path(__file__).resolve().parent
 MODEL = REPO / "runs" / "tpu_bricks_mcmc" / "point_cloud.ply"
 MODEL_2DGS = REPO / "runs" / "tpu_bricks_2dgs2" / "point_cloud.ply"
 
-FORWARD_ATOL = 3e-5
 # backward kernel vs plain version: npix exactly; every other entry within
 # this fraction of its row's largest magnitude, and within this fraction of
 # its own scale (``check_backward``), which an outlier column elsewhere in
@@ -191,7 +193,6 @@ class Route:
     fwd_plain: Callable
     bwd: Callable
     bwd_plain: Callable
-    forward_atol: float
     fwd_ops: Callable
     bwd_ops: Callable
     inst_rows: int
@@ -203,6 +204,8 @@ class Route:
     build_table: Callable     # (*table_inputs, inst) -> table
     reduce: Callable          # (grads, bins, nch) -> grads of table_inputs
     render: Callable          # (params, cam, icap, geometry, **bkw) -> out
+    cull_entry: str           # the forward's C entry (R.kernel_mask)
+    cull_passes: Callable     # (table, tiles_x, tile_size) -> plain cull
 
 
 def _gauss_reduce(grads, bins, nch):
@@ -219,7 +222,7 @@ def _surfel_reduce(grads, bins, nch):
 
 GAUSS = Route(
     "forward", "backward", R.rasterize_forward, R.rasterize_forward_plain,
-    R.rasterize_backward, R.rasterize_backward_plain, FORWARD_ATOL,
+    R.rasterize_backward, R.rasterize_backward_plain,
     forward_ops, backward_ops, 6, 9, 2,
     inputs=lambda params, cam, geometry: frame_inputs(params, cam),
     prep_args=lambda pr, opac: (pr.means2d, pr.depths, pr.radii,
@@ -228,11 +231,12 @@ GAUSS = Route(
                                            opac],
     build_table=R.build_feature_table, reduce=_gauss_reduce,
     render=lambda params, cam, icap, geometry, **bkw: render(
-        params, cam, instance_capacity=icap, **bkw))
+        params, cam, instance_capacity=icap, **bkw),
+    cull_entry="divshot_forward", cull_passes=R.cull_passes)
 SURFEL = Route(
     "surfel_forward", "surfel_backward", SR.surfel_forward,
     SR.surfel_forward_plain, SR.surfel_backward, SR.surfel_backward_plain,
-    0.0, surfel_forward_ops, surfel_backward_ops, 15, 20, 4,
+    surfel_forward_ops, surfel_backward_ops, 15, 20, 4,
     inputs=lambda params, cam, geometry: SR.surfel_inputs(
         params, cam, with_geometry=geometry),
     prep_args=lambda pr, opac: (pr["center2d"], pr["depths"],
@@ -241,7 +245,8 @@ SURFEL = Route(
                                            pr["center2d"], opac, colors],
     build_table=SR.build_surfel_table, reduce=_surfel_reduce,
     render=lambda params, cam, icap, geometry, **bkw: SR.render_surfels(
-        params, cam, instance_capacity=icap, with_geometry=geometry))
+        params, cam, instance_capacity=icap, with_geometry=geometry),
+    cull_entry="divshot_surfel_forward", cull_passes=SR.cull_passes)
 
 
 @dataclass(frozen=True)
@@ -368,19 +373,47 @@ def check_expand(p: B.Prep, cap: int, width: int, height: int) -> dict:
 
 def check_forward(route: Route, table, tile_start, width: int, height: int,
                   nch: int):
-    """Forward kernel vs plain version, within ``route.forward_atol`` (0 for
-    the surfel forward: equal) -> (max abs err, the data's pair counts,
+    """Forward kernel vs plain version: bitwise equal, and a second launch
+    bitwise equal to the first -> (max abs err, the data's pair counts,
     instances the data needs read: per tile, up to its last pixel's
     stop)."""
     kw = dict(width=width, height=height, nch=nch)
     out_k = route.fwd(table, tile_start, **kw)
+    again = route.fwd(table, tile_start, **kw)
     out_p, counts, reach = route.fwd_plain(table, tile_start,
                                            count_pairs=True, **kw)
     err = float((out_k - out_p).abs().max())
-    if not (bool(torch.isfinite(out_k).all()) and err <= route.forward_atol):
-        raise AssertionError(f"{route.forward}: max abs err {err} > "
-                             f"{route.forward_atol}")
+    if not (bool(torch.isfinite(out_k).all())
+            and torch.equal(out_k, out_p)):
+        raise AssertionError(f"{route.forward}: differs from plain, max abs "
+                             f"err {err}")
+    if not torch.equal(out_k, again):
+        raise AssertionError(f"{route.forward}: two launches differ")
     return err, counts, int(reach.sum())
+
+
+def check_survivors(route: Route, table, tile_start, width: int,
+                    height: int, what: str) -> dict:
+    """The forward's survivor mask as its cull pass writes it on the card
+    (``R.kernel_mask``) must equal its plain version (``forward_cull_plain``)
+    on every word of a long tile's segment -> the words and segments
+    compared. A CPU rehearsal has no kernel: the plain mask stands in."""
+    want, written, culled = forward_cull_plain(
+        tile_start, table.shape[1],
+        route.cull_passes(table, -(-width // 16), 16), 256)
+    got = (R.kernel_mask(route.cull_entry, table, tile_start, width=width,
+                         height=height)
+           if table.device.type == "cuda" else want)
+    if got.shape != want.shape or not torch.equal(got[written],
+                                                  want[written]):
+        bad = ((got != want).any(1) & written).nonzero()[:4, 0].tolist() \
+            if got.shape == want.shape else got.shape
+        raise AssertionError(f"{what}: the survivor mask differs from "
+                             f"plain at words {bad}")
+    return {"cull_words": int(written.sum()),
+            "long_tiles": int(is_long(tile_start[1:]
+                                      - tile_start[:-1]).sum()),
+            "culled_tiles": int(culled.sum())}
 
 
 def row_floor(grads: torch.Tensor) -> torch.Tensor:
@@ -522,8 +555,8 @@ def phase_kernels_vs_plain(device: torch.device, scale: Scale) -> dict:
                 f"{BACKWARD_RTOL} each; npix exact)")
     log(f"  {scale.check_splats} splats at {w}x{h}, capacity {cap}, demand "
         f"{ex['demand']}, NaN instances in every input: expand exact "
-        f"(max abs err {out['expand_err']}), forward max abs err "
-        f"{out['forward_err']:.3e} (tolerance {FORWARD_ATOL})")
+        f"(max abs err {out['expand_err']}), forward bitwise equal (max abs "
+        f"err {out['forward_err']:.3e}) and deterministic")
     out.update(surfel_kernels_vs_plain(params, cam, device))
     for route, nch in ((GAUSS, 3), (SURFEL, SR.MAX_CH)):
         out.update(unit_split_check(route, nch, device))
@@ -642,15 +675,23 @@ def check_schedule(tile_start: torch.Tensor, num_instances: int,
 
 def unit_split_check(route: Route, nch: int, device) -> dict:
     """Phase 3's check of the unit split: on ``unit_split_frame``, the
-    schedule on the card against its plain version and against the units
-    the frame plants, then the backward kernel against its plain version
-    under ``check_backward``'s bars and its determinism check; the frame's
+    forward kernel against its plain version (bitwise, twice) and its
+    survivor mask against the plain cull pass; the backward's schedule on
+    the card against its plain version and against the units the frame
+    plants, then the backward kernel against its plain version under
+    ``check_backward``'s bars and its determinism check; the frame's
     pixels' stops (from the plain version's npix on the hitter columns,
     where every pixel not yet stopped applies a live pair) are checked to
     be what the frame promises."""
     w = h = 32
     table, tile_start, planted, hitters, starts = unit_split_frame(
         route, nch, device)
+    fw_err, _, _ = check_forward(route, table, tile_start, w, h, nch)
+    cull = check_survivors(route, table, tile_start, w, h, route.forward)
+    log(f"  {route.forward} unit split: bitwise equal to plain and "
+        f"deterministic; survivor mask equal to plain on its "
+        f"{cull['cull_words']} words ({cull['long_tiles']} long tiles, "
+        f"{cull['culled_tiles']} culled)")
     units = check_schedule(tile_start, table.shape[1], route.backward)
     tile1 = sorted(units[units[:, 0] == 1][:, 2].tolist())
     if tile1 != starts or int((units[:, 0] == 3).sum()) != 1:
@@ -660,7 +701,8 @@ def unit_split_check(route: Route, nch: int, device) -> dict:
     bkw = {"with_absgrad": True} if route is GAUSS else {}
     chk = check_backward(route, table, tile_start, fwd, cot, w, h, nch,
                          **bkw)
-    out = {f"{route.backward}_units_err": chk["max_abs_err"]}
+    out = {f"{route.forward}_units_err": fw_err,
+           f"{route.backward}_units_err": chk["max_abs_err"]}
     log(f"  {route.backward} unit split: schedule equal to plain; max abs "
         f"err {chk['max_abs_err']:.3e}, row-relative {chk['row_rel']:.3e}, "
         f"relative to the entries' scales "
@@ -926,6 +968,8 @@ def kernel_records(scene: str, fr: Frame, device: torch.device,
     # the forward's check also counts the pairs that the bounds charge
     fw_err, counts, reads = check_forward(route, table, tile_start, w, h,
                                           nch)
+    cull = {} if backward_only else check_survivors(route, table,
+                                                    tile_start, w, h, scene)
     n = fr.pp.u.shape[0]
     owning = int((fr.pp.counts > 0).sum())    # gaussians with instances
     kept = int(tile_start[-1])
@@ -947,7 +991,9 @@ def kernel_records(scene: str, fr: Frame, device: torch.device,
          time_ms(lambda: route.fwd(table, tile_start, **kw), device, it),
          time_ms(lambda: route.fwd_plain(table, tile_start, **kw), device, 1,
                  warmup=0),
-         read_bytes + 8 * tile_bytes, route.fwd_ops(counts, nch)),
+         read_bytes + 8 * tile_bytes, route.fwd_ops(counts, nch),
+         {"longest_tile": int((tile_start[1:] - tile_start[:-1]).max()),
+          **cull}),
     ]
     if cot is not None:
         units = check_schedule(tile_start, table.shape[1], scene)
@@ -1303,7 +1349,8 @@ def device_busy(fn, device: torch.device, iters: int) -> float | None:
             "measured")
         return None
     log(f"  profiler over {iters} steps: wall {wall_us / 1e3:.3f} ms, "
-        f"kernels {total / 1e3:.3f} ms, device busy "
+        f"kernels {total / 1e3:.3f} ms ({total / 1e3 / iters:.3f} ms a "
+        f"step), device busy "
         f"{total / wall_us:.4f}; largest: " + "; ".join(
             f"{e.key[:48]} {dev_us(e) / 1e3 / iters:.3f} ms/step "
             f"x{e.count // iters}" for e in events[:8]))

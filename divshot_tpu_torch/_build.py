@@ -39,11 +39,11 @@ _I32 = ctypes.c_int32
 _SIGNATURES = {
     "divshot_expand": [_P] * 9 + [_I32] * 5 + [_P, _P, _P],
     "divshot_forward": [_P, ctypes.c_int64, _P, _I32, _I32, _I32, _I32,
-                        ctypes.c_float, _P, _P],
+                        ctypes.c_float, _P, _P, _P],
     "divshot_backward": [_P, ctypes.c_int64, _P, _I32, _I32, _I32, _I32,
                          ctypes.c_float, _I32, _P, _P, _P, _P],
     "divshot_surfel_forward": [_P, ctypes.c_int64, _P, _I32, _I32, _I32,
-                               _I32, ctypes.c_float, _P, _P],
+                               _I32, ctypes.c_float, _P, _P, _P],
     "divshot_surfel_backward": [_P, ctypes.c_int64, _P, _I32, _I32, _I32,
                                 _I32, ctypes.c_float, _P, _P, _P, _P],
     "divshot_backward_schedule": [_P, _I32, ctypes.c_int64, ctypes.c_int64,

@@ -20,12 +20,16 @@ int divshot_expand(const int32_t* offsets, const int32_t* counts,
                    int32_t tile_size, int32_t depth_bits,
                    uint32_t* key_out, int32_t* owner_out, void* stream);
 
-// Front-to-back alpha compositing of depth-sorted instances per tile:
-// see forward.cu.
+// Front-to-back alpha compositing of depth-sorted instances per tile, in
+// two launches: see forward.cu. `work` is a workspace of
+// units::work_words(num_instances, tile_size^2) int32 (null when that is
+// 0) that needs no initialisation; after the call its first
+// units::cull_words(num_instances) x tile_size^2 words hold the survivor
+// mask of the culled long tiles (units.cuh).
 int divshot_forward(const float* table, int64_t num_instances,
                     const int32_t* tile_start, int32_t num_tiles,
                     int32_t tiles_x, int32_t tile_size, int32_t nch,
-                    float t_eps, float* out, void* stream);
+                    float t_eps, float* out, int32_t* work, void* stream);
 
 // The VJP of divshot_forward: per-instance gradient rows
 // [du dv da db dc dop dch.. |du| |dv| npix] of shape (9 + nch, I) from the
@@ -38,11 +42,13 @@ int divshot_backward(const float* table, int64_t num_instances,
                      const float* fwd, float* grads, void* stream);
 
 // Exact-2DGS (surfel) ray-splat compositing of depth-sorted instances per
-// tile -> (T, 8, px): channels, z, z^2, T: see surfel_forward.cu.
+// tile -> (T, 8, px): channels, z, z^2, T, with the workspace `work` as
+// in divshot_forward: see surfel_forward.cu.
 int divshot_surfel_forward(const float* table, int64_t num_instances,
                            const int32_t* tile_start, int32_t num_tiles,
                            int32_t tiles_x, int32_t tile_size, int32_t nch,
-                           float t_eps, float* out, void* stream);
+                           float t_eps, float* out, int32_t* work,
+                           void* stream);
 
 // The VJP of divshot_surfel_forward: per-instance rows
 // [dT(9) dzp(3) dc2d(2) dop dch.. ds_x ds_y |ds_x| |ds_y| npix] of shape

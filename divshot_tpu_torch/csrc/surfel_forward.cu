@@ -16,86 +16,85 @@
 //   a tile evaluates before all its pixels stop (~45 operations a pair,
 //   a division and an exp among them); the table is read once per tile
 //   that holds the instance, a few bytes per pair.
-// Design: one block per tile, one thread per pixel (tile_size^2 threads),
-//   as in forward.cu. The block stages a chunk of blockDim instance
-//   columns (15 + nch rows) in shared memory with coalesced row reads,
-//   every thread walks the chunk in order, and the block leaves as soon
-//   as every pixel has stopped (__syncthreads_and). The TPU kernel's bf16
-//   split prefix products, `tri` matrices, DMA double buffer and lane
-//   masking are replaced by this direct per-pixel loop in plain float32.
+// Design: the two launches of forward.cu (units.cuh's, over this file's
+//   pair model Surfel), for the same reason (a trained model's longest
+//   tiles, ~7 x 10^4 instances, walked on one SM; almost every pair
+//   culled): tile_kernel walks every tile in one pass as the first port
+//   did, but the long tiles the probe finds sparse, whose regions it
+//   marks; cull_walk_kernel culls the marked segments (each pair evaluated
+//   without branches, surfel::eval_pair<true>, so that pairs interleave; a
+//   bit where it passes the three culls) and the block that culls a tile's
+//   last segment walks the tile, the next chunks in flight, each pixel
+//   evaluating only its survivors. Every pair is evaluated with
+//   surfel::eval_pair's rounded operations and the chain keeps the same
+//   rounded steps in column order, so the output is bitwise the
+//   single-pass walk's. The TPU kernel's bf16 split prefix products, `tri`
+//   matrices, DMA double buffer and lane masking have no counterpart:
+//   plain float32.
 #include <cuda_runtime.h>
+#include <stdint.h>
 #include "api.h"
 #include "surfel.cuh"
+#include "units.cuh"
 
 namespace {
 
 constexpr int kMaxCh = 5;
 
-__global__ void surfel_forward_kernel(const float* __restrict__ table,
-                                      int64_t num_instances,
-                                      const int32_t* __restrict__ tile_start,
-                                      int32_t tiles_x, int32_t tile_size,
-                                      int32_t nch, float t_eps,
-                                      float* __restrict__ out) {
-  extern __shared__ float chunk[];  // (15 + nch) rows x blockDim columns
-  const int t = blockIdx.x;
-  const int p = threadIdx.x;
-  const int npx = blockDim.x;
-  const int rows = surfel::kRowCh + nch;
-  const int32_t s0 = tile_start[t];
-  const int32_t e0 = tile_start[t + 1];
+// The surfel pair model of units.cuh's launches.
+struct Surfel {
+  static constexpr int kCullRows = surfel::kRowCh;   // T zplane c2d op
+  static constexpr int kChRow = surfel::kRowCh;
+  static constexpr int kInterleave = 2;
 
-  const float px = (float)((t % tiles_x) * tile_size + p % tile_size) + 0.5f;
-  const float py = (float)((t / tiles_x) * tile_size + p / tile_size) + 0.5f;
-
-  float T = 1.0f;
-  float acc[kMaxCh];
-#pragma unroll
-  for (int c = 0; c < kMaxCh; ++c) acc[c] = 0.0f;
-  float zacc = 0.0f, z2acc = 0.0f;
-  bool done = false;
-
-  for (int32_t base = s0; base < e0; base += npx) {
-    const int32_t k = base + p;
-    if (k < e0) {
-      for (int r = 0; r < rows; ++r)
-        chunk[r * npx + p] = table[(int64_t)r * num_instances + k];
-    }
-    __syncthreads();
-    const int n = min(npx, e0 - base);
-    if (!done) {
-      for (int j = 0; j < n; ++j) {
-        surfel::Pair s;
-        if (!surfel::eval_pair(chunk, npx, j, px, py, s)) continue;
-        const float q = __fmul_rn(T, __fsub_rn(1.0f, s.alpha));
-        if (q < t_eps) {
-          done = true;
-          break;
-        }
-        const float w = __fmul_rn(s.alpha, T);
-#pragma unroll
-        for (int ch = 0; ch < kMaxCh; ++ch)
-          if (ch < nch)
-            acc[ch] = __fadd_rn(
-                acc[ch],
-                __fmul_rn(w, chunk[(surfel::kRowCh + ch) * npx + j]));
-        const float wz = __fmul_rn(w, s.z);
-        zacc = __fadd_rn(zacc, wz);
-        z2acc = __fadd_rn(z2acc, __fmul_rn(wz, s.z));
-        T = q;
-      }
-    }
-    // also the barrier before the next chunk overwrites shared memory
-    if (__syncthreads_and(done)) break;
+  __device__ static bool passes(const float* c, int stride, int j,
+                                float2 q) {
+    surfel::Pair s;
+    return surfel::eval_pair<true>(c, stride, j, q.x, q.y, s);
   }
 
-  float* o = out + (int64_t)t * 8 * npx + p;
+  // One pixel's compositing state.
+  struct Chain {
+    float T = 1.0f;
+    float acc[kMaxCh] = {};
+    float zacc = 0.0f, z2acc = 0.0f;
+    bool done = false;
+
+    // A pair that passes the culls: the pixel stops, without applying it,
+    // where T (1 - alpha) < t_eps; else it adds w = alpha T to the
+    // channels, w z and w z z to the depth sums.
+    __device__ __forceinline__ bool visit(const float* __restrict__ c,
+                                          int stride, int j, float2 q,
+                                          int nch, float t_eps) {
+      surfel::Pair s;
+      if (!surfel::eval_pair(c, stride, j, q.x, q.y, s)) return false;
+      const float nt = __fmul_rn(T, __fsub_rn(1.0f, s.alpha));
+      if (nt < t_eps) {
+        done = true;
+        return true;
+      }
+      const float w = __fmul_rn(s.alpha, T);
+      const float* ch = c + kChRow * stride + j;
 #pragma unroll
-  for (int r = 0; r < kMaxCh; ++r) o[r * npx] = r < nch ? acc[r] : 0.0f;
-  o[5 * npx] = zacc;
-  o[6 * npx] = z2acc;
-  o[7 * npx] = T;
-}
+      for (int k = 0; k < kMaxCh; ++k)
+        if (k < nch) acc[k] = __fadd_rn(acc[k], __fmul_rn(w, ch[k * stride]));
+      const float wz = __fmul_rn(w, s.z);
+      zacc = __fadd_rn(zacc, wz);
+      z2acc = __fadd_rn(z2acc, __fmul_rn(wz, s.z));
+      T = nt;
+      return false;
+    }
+
+    __device__ __forceinline__ void store(float* __restrict__ o, int npx,
+                                          int nch) const {
+#pragma unroll
+      for (int r = 0; r < kMaxCh; ++r) o[r * npx] = r < nch ? acc[r] : 0.0f;
+      o[5 * npx] = zacc;
+      o[6 * npx] = z2acc;
+      o[7 * npx] = T;
+    }
+  };
+};
 
 }  // namespace
 
@@ -104,19 +103,9 @@ extern "C" int divshot_surfel_forward(const float* table,
                                       const int32_t* tile_start,
                                       int32_t num_tiles, int32_t tiles_x,
                                       int32_t tile_size, int32_t nch,
-                                      float t_eps, float* out,
+                                      float t_eps, float* out, int32_t* work,
                                       void* stream) {
-  if (num_tiles <= 0) return (int)cudaSuccess;
-  const int threads = tile_size * tile_size;
-  const size_t smem =
-      sizeof(float) * (size_t)(surfel::kRowCh + nch) * threads;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        surfel_forward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  surfel_forward_kernel<<<num_tiles, threads, smem, (cudaStream_t)stream>>>(
-      table, num_instances, tile_start, tiles_x, tile_size, nch, t_eps, out);
-  return (int)cudaGetLastError();
+  return units::launch_forward<Surfel>(table, num_instances, tile_start,
+                                       num_tiles, tiles_x, tile_size, nch,
+                                       t_eps, out, work, stream);
 }

@@ -12,7 +12,11 @@ per-instance gradient rows ``(9 + nch, I)``
 ``[du dv da db dc dop dch.. |du| |dv| npix]``. On a CPU tensor each
 wrapper runs its plain PyTorch version (``rasterize_forward_plain``,
 ``rasterize_backward_plain``); on a CUDA tensor it launches the kernel or
-raises.
+raises. The forward kernel culls the long tiles (``units.is_long``) in a
+pass of its own, spread over the card, and then walks only their
+surviving pairs (``raster/units.py``); ``kernel_mask`` gives that pass's
+survivor mask on the card, ``rasterize_forward_plain(survivors=...)`` the
+walk from its plain version.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import numpy as np
 import torch
 
 from divshot_tpu_torch import _build
+from divshot_tpu_torch.raster import units
 
 ALPHA_MIN = 1.0 / 255.0
 ALPHA_MAX = 0.999
@@ -111,21 +116,82 @@ def rasterize_forward(table: torch.Tensor, tile_start: torch.Tensor, *,
                       width: int, height: int, tile_size: int = 16,
                       nch: int = 3, t_eps: float = T_EPS) -> torch.Tensor:
     """-> (T, 8, tile_size**2) per-tile rows. ``tile_start`` must hold
-    non-decreasing offsets within [0, I], as ``expand_sorted`` makes them."""
+    non-decreasing offsets within [0, I], as ``expand_sorted`` makes them.
+    The kernel's workspace (``forward_workspace``) holds at most 34.1
+    bytes a column at 16x16 tiles, the table 4 (6 + nch); nothing is read
+    back on the host."""
     if table.device.type == "cpu":
         return rasterize_forward_plain(table, tile_start, width=width,
                                        height=height, tile_size=tile_size,
                                        nch=nch, t_eps=t_eps)
     tiles_x, num_tiles, px = _check_kernel_inputs(
         table, tile_start, width, height, tile_size, nch)
+    if px % 32:
+        raise ValueError("tile_size**2 must be a multiple of 32 (warps)")
     out = torch.empty((num_tiles, 8, px), dtype=torch.float32,
                       device=table.device)
+    work = forward_workspace(table, px)
     err = _build.library().divshot_forward(
         table.data_ptr(), table.shape[1], tile_start.data_ptr(), num_tiles,
         tiles_x, tile_size, nch, float(np.float32(t_eps)), out.data_ptr(),
+        None if work is None else work.data_ptr(),
         _build.stream_ptr(table.device))
     _build.check_launch("forward", err)
     return out
+
+
+def forward_workspace(table: torch.Tensor, px: int) -> torch.Tensor | None:
+    """A forward kernel's workspace: ``units.work_words`` int32,
+    uninitialised, on the table's device and current stream; None when no
+    tile can be culled (``units.work_words`` 0). Freed when the call's
+    caller drops it, so nothing of it outlives the forward."""
+    nwork = units.work_words(table.shape[1], px)
+    return (torch.empty((nwork,), dtype=torch.int32, device=table.device)
+            if nwork else None)
+
+
+def kernel_mask(entry: str, table: torch.Tensor, tile_start: torch.Tensor,
+                *, width: int, height: int, tile_size: int = 16
+                ) -> torch.Tensor:
+    """Run the forward kernel ``entry`` (``divshot_forward`` or
+    ``divshot_surfel_forward``) at nch 1, not counted as a path launch ->
+    the survivor mask its cull pass leaves in the workspace, (words, px)
+    int64 word values; only the words of the culled long tiles' segments
+    are defined (``units.forward_cull_plain`` is its plain version)."""
+    _build.require(table, "table", torch.float32)
+    tiles_x, tiles_y = _grid(width, height, tile_size)
+    num_tiles, px = tiles_x * tiles_y, tile_size * tile_size
+    _build.require(tile_start, "tile_start", torch.int32, (num_tiles + 1,),
+                   table.device)
+    out = torch.empty((num_tiles, 8, px), dtype=torch.float32,
+                      device=table.device)
+    work = forward_workspace(table, px)
+    err = getattr(_build.library(), entry)(
+        table.data_ptr(), table.shape[1], tile_start.data_ptr(), num_tiles,
+        tiles_x, tile_size, 1, float(np.float32(T_EPS)), out.data_ptr(),
+        None if work is None else work.data_ptr(),
+        _build.stream_ptr(table.device))
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {entry} failed to launch: "
+                           f"cudaError_t {err}")
+    if work is None:
+        return torch.zeros((0, px), dtype=torch.int64, device=table.device)
+    nwords = units.cull_words(table.shape[1])
+    return work[:nwords * px].view(nwords, px).long() & 0xFFFFFFFF
+
+
+def cull_passes(table: torch.Tensor, tiles_x: int, tile_size: int):
+    """The plain cull of one tile's pairs, for ``units.forward_cull_plain``:
+    ``(tile, start, end) -> (px, end - start)`` bool, s >= log(1/255)."""
+    def passes(t: int, start: int, end: int) -> torch.Tensor:
+        dev = table.device
+        _, _, _, _, _, s, _ = _chunk_terms(
+            table, torch.tensor([t], device=dev),
+            torch.tensor([start], device=dev),
+            torch.tensor([end - start], device=dev), 0, end - start, 1,
+            tiles_x, tile_size)
+        return s[0] >= _LOG_AMIN_F32
+    return passes
 
 
 def _chunk_terms(table, tile, s0, n_t, k0: int, chunk: int, nch: int,
@@ -154,6 +220,20 @@ def _chunk_terms(table, tile, s0, n_t, k0: int, chunk: int, nch: int,
     return kk, valid, f, dx, dy, s, alpha
 
 
+def _survived(passed: torch.Tensor, survivors: units.FwdCull | None, tile,
+              s0, n_t, kk, unit: int) -> torch.Tensor:
+    """The cull of a chunk (A, px, C) of tiles ``tile``: ``passed`` as
+    evaluated, or for the tiles the cull pass culled the mask's bits."""
+    if survivors is None:
+        return passed
+    culled = survivors.culled[tile]
+    if not bool(culled.any()):
+        return passed
+    bits = units.survivor_bits(survivors.mask, s0, n_t, s0[:, None] + kk,
+                               unit)
+    return torch.where(culled[:, None, None], bits, passed)
+
+
 def _pack_live(live: torch.Tensor, alpha: torch.Tensor):
     """Pack each pixel's live instances to the front, in order ->
     (n_live (A, px), n_pack, alphas and chunk positions (A, px, n_pack+1))."""
@@ -179,12 +259,17 @@ class PairCounts(NamedTuple):
 def rasterize_forward_plain(table: torch.Tensor, tile_start: torch.Tensor, *,
                             width: int, height: int, tile_size: int = 16,
                             nch: int = 3, t_eps: float = T_EPS,
-                            count_pairs: bool = False):
+                            count_pairs: bool = False,
+                            survivors: units.FwdCull | None = None,
+                            unit: int = units.FWD_UNIT):
     """Plain PyTorch version of the forward kernel, with the kernel's
     float32 operations in the kernel's order, so both take the same cull
     and stop decisions. The tiles still compositing advance together one
     chunk of instance positions at a time: the cull runs on the whole chunk
     at once, then each pixel walks only its live instances in order.
+    With ``survivors``, a cull pass's result at ``unit``
+    (``units.forward_cull_plain``), each tile it culled takes its cull from
+    the mask instead, as the kernel's second pass does.
     With ``count_pairs`` it returns ``(out, PairCounts, reach)``: the
     (pixel, instance) pairs of each class this data holds, and per tile
     the number of its instances that must be read (up to the furthest any
@@ -219,10 +304,12 @@ def rasterize_forward_plain(table: torch.Tensor, tile_start: torch.Tensor, *,
             break
         chunk = max(1, min(256, _CHUNK_ELEMS // (n_act * px),
                            int((n_t - k0).max())))
-        _, valid, f, _, _, s, alpha = _chunk_terms(
+        kk, valid, f, _, _, s, alpha = _chunk_terms(
             table, tile, s0, n_t, k0, chunk, nch, tiles_x, tile_size)
         was_done = done
-        live = valid[:, None, :] & (s >= _LOG_AMIN_F32) & ~done[:, :, None]
+        passed = _survived(s >= _LOG_AMIN_F32, survivors, tile, s0, n_t, kk,
+                           unit)
+        live = valid[:, None, :] & passed & ~done[:, :, None]
         n_live, n_pack, p_alpha, p_pos = _pack_live(live, alpha)
         stop_pos = torch.full((n_act, px), -1, dtype=torch.long, device=dev)
         chans = f[ROW_CH:ROW_CH + nch]                          # (nch, A, C)
@@ -255,6 +342,23 @@ def rasterize_forward_plain(table: torch.Tensor, tile_start: torch.Tensor, *,
     if count_pairs:
         return out, PairCounts(*(int(c) for c in counts)), reach
     return out
+
+
+def rasterize_forward_two_pass_plain(table: torch.Tensor,
+                                    tile_start: torch.Tensor, *, width: int,
+                                    height: int, tile_size: int = 16,
+                                    nch: int = 3, t_eps: float = T_EPS,
+                                    unit: int = units.FWD_UNIT):
+    """The kernel's two passes in plain PyTorch: the cull pass at ``unit``
+    (``units.forward_cull_plain``), then the walk from its mask."""
+    tiles_x, _ = _grid(width, height, tile_size)
+    cull = units.forward_cull_plain(
+        tile_start, table.shape[1], cull_passes(table, tiles_x, tile_size),
+        tile_size * tile_size, unit)
+    return rasterize_forward_plain(table, tile_start, width=width,
+                                   height=height, tile_size=tile_size,
+                                   nch=nch, t_eps=t_eps, survivors=cull,
+                                   unit=unit)
 
 
 def rasterize_backward(table: torch.Tensor, tile_start: torch.Tensor,

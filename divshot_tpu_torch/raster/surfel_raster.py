@@ -26,7 +26,10 @@ weights), the final transmittance in row 7. ``surfel_backward`` wraps
 counterpart of the 3DGS means2d gradient), summed signed and, per pixel,
 as magnitudes (AbsGS). On a CPU tensor each wrapper runs its plain
 PyTorch version (``surfel_forward_plain``, ``surfel_backward_plain``); on
-a CUDA tensor it launches the kernel or raises.
+a CUDA tensor it launches the kernel or raises. The forward kernel culls
+long tiles in a pass of its own and walks only their surviving pairs, as
+the 3DGS forward does (``raster/raster.py``, ``raster/units.py``):
+``raster.kernel_mask`` gives that pass's survivor mask on the card.
 
 ``RasterSurfel`` is the autograd Function around binning, the table and
 the two kernels; ``render_surfels`` the exact-2DGS render.
@@ -40,10 +43,13 @@ import numpy as np
 import torch
 
 from divshot_tpu_torch import _build
+from divshot_tpu_torch.raster import units
 from divshot_tpu_torch.raster.bin import expand_sorted, segment_rows_sorted
 from divshot_tpu_torch.raster.project import Projection
 from divshot_tpu_torch.raster.raster import (_grid, _image_to_tiles,
-                                             _pack_live, _tiles_to_image)
+                                             _pack_live, _survived,
+                                             _tiles_to_image,
+                                             forward_workspace)
 from divshot_tpu_torch.raster.surfel import (ALPHA_MAX, ALPHA_MIN,
                                              FILTER_INV_SQ, T_EPS, Z_MIN,
                                              project_surfels)
@@ -131,7 +137,9 @@ def surfel_forward(table: torch.Tensor, tile_start: torch.Tensor, *,
                    width: int, height: int, tile_size: int = 16,
                    nch: int = 5, t_eps: float = T_EPS) -> torch.Tensor:
     """-> (T, 8, tile_size**2) per-tile rows (module docstring).
-    ``tile_start`` must hold non-decreasing offsets within [0, I]."""
+    ``tile_start`` must hold non-decreasing offsets within [0, I]. The
+    kernel's workspace (``raster.forward_workspace``) holds under half the
+    table's bytes."""
     if table.device.type == "cpu":
         return surfel_forward_plain(table, tile_start, width=width,
                                     height=height, tile_size=tile_size,
@@ -140,12 +148,44 @@ def surfel_forward(table: torch.Tensor, tile_start: torch.Tensor, *,
                                            tile_size, nch)
     out = torch.empty((num_tiles, 8, px), dtype=torch.float32,
                       device=table.device)
+    work = forward_workspace(table, px)
     err = _build.library().divshot_surfel_forward(
         table.data_ptr(), table.shape[1], tile_start.data_ptr(), num_tiles,
         tiles_x, tile_size, nch, float(np.float32(t_eps)), out.data_ptr(),
+        None if work is None else work.data_ptr(),
         _build.stream_ptr(table.device))
     _build.check_launch("surfel_forward", err)
     return out
+
+
+def cull_passes(table: torch.Tensor, tiles_x: int, tile_size: int):
+    """The plain culls of one tile's pairs, for
+    ``units.forward_cull_plain``: ``(tile, start, end) -> (px, end -
+    start)`` bool, the pairs that pass all three."""
+    def passes(t: int, start: int, end: int) -> torch.Tensor:
+        dev = table.device
+        terms = _chunk_terms(table, torch.tensor([t], device=dev),
+                             torch.tensor([start], device=dev),
+                             torch.tensor([end - start], device=dev), 0,
+                             end - start, 1, tiles_x, tile_size)
+        return terms["ok"][0]
+    return passes
+
+
+def surfel_forward_two_pass_plain(table: torch.Tensor,
+                                  tile_start: torch.Tensor, *, width: int,
+                                  height: int, tile_size: int = 16,
+                                  nch: int = 5, t_eps: float = T_EPS,
+                                  unit: int = units.FWD_UNIT):
+    """The kernel's two passes in plain PyTorch: the cull pass at ``unit``,
+    then the walk from its mask."""
+    tiles_x, _ = _grid(width, height, tile_size)
+    cull = units.forward_cull_plain(
+        tile_start, table.shape[1], cull_passes(table, tiles_x, tile_size),
+        tile_size * tile_size, unit)
+    return surfel_forward_plain(table, tile_start, width=width,
+                                height=height, tile_size=tile_size, nch=nch,
+                                t_eps=t_eps, survivors=cull, unit=unit)
 
 
 def surfel_backward(table: torch.Tensor, tile_start: torch.Tensor,
@@ -236,14 +276,18 @@ def _chunk_size(n_act: int, px: int, n_t, k0: int, budget: int) -> int:
 def surfel_forward_plain(table: torch.Tensor, tile_start: torch.Tensor, *,
                          width: int, height: int, tile_size: int = 16,
                          nch: int = 5, t_eps: float = T_EPS,
-                         count_pairs: bool = False):
+                         count_pairs: bool = False,
+                         survivors: units.FwdCull | None = None,
+                         unit: int = units.FWD_UNIT):
     """Plain PyTorch version of the surfel forward kernel, with the
     kernel's float32 operations in the kernel's order, so both take the
     same cull and stop decisions. The tiles still compositing advance
     together one chunk of instance positions at a time: the culls run on
     the whole chunk at once, then each pixel walks only its valid
-    instances in order. With ``count_pairs`` it returns ``(out,
-    SurfelPairCounts, reach)``: the (pixel, instance) pairs of each class
+    instances in order. With ``survivors`` (a cull pass's result at
+    ``unit``, ``units.forward_cull_plain``) each tile it culled takes its
+    culls from the mask, as the kernel's second pass does. With
+    ``count_pairs`` it returns ``(out, SurfelPairCounts, reach)``: the (pixel, instance) pairs of each class
     and per tile the number of its instances that must be read."""
     dev = table.device
     tiles_x, tiles_y = _grid(width, height, tile_size)
@@ -282,7 +326,8 @@ def surfel_forward_plain(table: torch.Tensor, tile_start: torch.Tensor, *,
         t = _chunk_terms(table, tile, s0, n_t, k0, chunk, nch, tiles_x,
                          tile_size)
         was_done = done
-        live = t["valid"][:, None, :] & t["ok"] & ~done[:, :, None]
+        ok = _survived(t["ok"], survivors, tile, s0, n_t, t["kk"], unit)
+        live = t["valid"][:, None, :] & ok & ~done[:, :, None]
         n_live, n_pack, p_alpha, p_pos = _pack_live(live, t["alpha"])
         stop_pos = torch.full((n_act, px), -1, dtype=torch.long, device=dev)
         chans = t["f"][ROW_CH:ROW_CH + nch]                     # (nch, A, C)

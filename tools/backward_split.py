@@ -126,6 +126,69 @@ def patch(csrc: Path, dst: Path, variant: str) -> str:
     return design
 
 
+def cell_frame(cs, cell: str, device, scale):
+    """The inputs of one cell, through the checkout's ``chip_smoke`` module
+    ``cs`` -> (route, frame, the cotangent of the cell's loss): ``train`` and
+    ``train2d`` a fresh 100K-splat model at 800x800, view 0, the train loss;
+    ``model`` and ``model2d`` the repo's trained 3DGS and 2DGS models, view 0
+    of the app's orbit at the frame size, ``sum_loss``; ``random`` the
+    1M-splat random scene of ``chip_smoke`` phase 4 at the frame size;
+    ``bar_<name>`` (``bar_adc+``, ``bar_mcmc``, ``bar_2dgs``) the loss bar
+    of that name in ``chip_smoke`` phases 5(a) and 6(a), trained for its
+    steps, view 0, the train loss."""
+    import numpy as np
+
+    from divshot_tpu_torch.apps.render import orbit_for_model
+    from divshot_tpu_torch.gsio.synthetic import orbit_cameras, random_scene
+    if cell.startswith("bar_"):
+        cases = {c[0]: (c, 0) for c in cs.BARS_3DGS}
+        cases.update({c[0]: (c, 1) for c in cs.BARS_2DGS})
+        (_, strategy, _, setup_kw, cfg_kw, densify_kw), model_type = \
+            cases[cell[4:]]
+        cfg, ds, params = cs.small_setup(np.random.default_rng(0), strategy,
+                                         device, **setup_kw)
+        cfg = cfg.replace(**cfg_kw)
+        for k, v in densify_kw.items():
+            setattr(cfg.densify, k, v)
+        tr = cs.Trainer(cfg, ds, params,
+                        render_kwargs={"instance_capacity": 1 << 15})
+        tr.run(scale.bars2d_iters if model_type else scale.bars_iters,
+               log_every=0)
+        route = cs.SURFEL if model_type else cs.GAUSS
+        fr = cs.make_frame(tr.state.params, ds.cameras[0],
+                           tr.instance_capacity, route=route)
+        return route, fr, cs.loss_cotangent(
+            fr, cs.train_loss(tr.cfg, ds.images[0], fr.cam, tr.state.step))
+    if cell == "random":
+        params = random_scene(np.random.default_rng(0), scale.random_splats,
+                              sh_degree=3, scale_range=(0.004, 0.025),
+                              device=device)
+        cam = orbit_cameras(1, width=scale.width, height_px=scale.height,
+                            device=device)[0]
+        probe = cs.make_frame(params, cam, scale.probe_capacity)
+        fr = cs.make_frame(params, cam, cs.auto_icap(int(probe.pp.total)))
+        return cs.GAUSS, fr, cs.loss_cotangent(fr, cs.sum_loss)
+    if cell in ("train", "train2d"):
+        model_type = int(cell == "train2d")
+        cfg, ds, params = cs._bench_setup(device, scale, model_type)
+        route = cs.SURFEL if model_type else cs.GAUSS
+        cam = ds.cameras[0]
+        probe = cs.make_frame(params, cam, 1 << 22, route=route)
+        fr = cs.make_frame(params, cam, cs.auto_icap(int(probe.pp.total)),
+                           route=route)
+        return route, fr, cs.loss_cotangent(
+            fr, cs.train_loss(cfg, ds.images[0], cam, 0))
+    route = cs.SURFEL if cell == "model2d" else cs.GAUSS
+    params = cs._load(cs.MODEL_2DGS if cell == "model2d" else cs.MODEL,
+                      device, scale)
+    cam = orbit_for_model(params, 1, radius=4.0, width=scale.width,
+                          height=scale.height, fov=50.0)[0]
+    probe = cs.make_frame(params, cam, scale.probe_capacity, route=route)
+    fr = cs.make_frame(params, cam, cs.auto_icap(int(probe.pp.total)),
+                       route=route)
+    return route, fr, cs.loss_cotangent(fr, cs.sum_loss)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
@@ -141,7 +204,6 @@ def main() -> int:
 
     import chip_smoke as cs
     from divshot_tpu_torch import _build
-    from divshot_tpu_torch.apps.render import orbit_for_model
 
     device = torch.device("cuda")
     if not torch.cuda.is_available():
@@ -190,28 +252,8 @@ def main() -> int:
     scale = cs.FULL
     cells = {}
     for cell in args.cells.split(","):
-        if cell in ("train", "train2d"):
-            model_type = int(cell == "train2d")
-            cfg, ds, params = cs._bench_setup(device, scale, model_type)
-            route = cs.SURFEL if model_type else cs.GAUSS
-            cam = ds.cameras[0]
-            probe = cs.make_frame(params, cam, 1 << 22, route=route)
-            fr = cs.make_frame(params, cam, cs.auto_icap(int(probe.pp.total)),
-                               route=route)
-            cot = cs.loss_cotangent(fr, cs.train_loss(cfg, ds.images[0], cam,
-                                                      0))
-        else:
-            route = cs.SURFEL if cell == "model2d" else cs.GAUSS
-            params = cs._load(cs.MODEL_2DGS if cell == "model2d"
-                              else cs.MODEL, device, scale)
-            cam = orbit_for_model(params, 1, radius=4.0, width=scale.width,
-                                  height=scale.height, fov=50.0)[0]
-            probe = cs.make_frame(params, cam, scale.probe_capacity,
-                                  route=route)
-            fr = cs.make_frame(params, cam, cs.auto_icap(int(probe.pp.total)),
-                               route=route)
-            cot = cs.loss_cotangent(fr, cs.sum_loss)
-        w, h = cam.width, cam.height
+        route, fr, cot = cell_frame(cs, cell, device, scale)
+        w, h = fr.cam.width, fr.cam.height
         kw = dict(width=w, height=h, nch=fr.nch)
         if route is cs.GAUSS:
             kw["with_absgrad"] = False
@@ -231,7 +273,7 @@ def main() -> int:
             longest_tile=int(n_t.max()), tiles=int(n_t.numel()),
             nch=fr.nch, walk=c, arithmetic=b - c, reduction=a - b)
         print(f"{cell}: " + json.dumps(cells[cell]), flush=True)
-        del fr, cot, fwd, probe
+        del fr, cot, fwd
         torch.cuda.empty_cache()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader", "-i", "0"],
