@@ -17,8 +17,14 @@ Phases, each a function of ``(device, scale)``:
    columns on unit boundaries, pixels that stop inside an earlier unit, a
    unit after every pixel's stop, a tile shorter than a unit), with the
    forward's survivor mask written on the card held against its plain
-   cull pass. Every check launches the kernel twice and requires bitwise
-   equal results; the forwards equal their plain versions bitwise;
+   cull pass; the expand kernel also on adversarial inputs at 1920x1080
+   (zero-count runs longer than several blocks' pieces, every count at mt
+   64 and 256, overflow, one gaussian and none, NaN instances). Every
+   check launches the kernel twice and requires bitwise equal results;
+   the expand kernel's keys and owners and the forwards equal their plain
+   versions bitwise, and on every frame whose expansion is checked
+   ``sort_instances`` gives the int64 sort's tile ranges, owners and
+   permutation (``check_expand``);
 4. the viewer path (``divshot_tpu_torch.apps.render``) at 1920x1080 on the
    repo's trained model ``runs/tpu_bricks_mcmc/point_cloud.ply`` and on a
    1M-splat random scene, with the launch counts that prove it went through
@@ -349,26 +355,36 @@ def phase_build(device: torch.device, scale: Scale) -> float:
 
 
 def check_expand(p: B.Prep, cap: int, width: int, height: int) -> dict:
-    """Expand kernel vs plain version: every key and owner equal as
-    multisets per tile, and tile_start equal."""
+    """Expand kernel vs plain version: keys and owners bitwise equal slot
+    for slot, a second launch bitwise equal to the first, and the split of
+    the kernel's work as its blocks find it (``B.expand_partition``) equal
+    to its plain version. On the kernel's keys ``sort_instances`` must give
+    the int64 path's ``tile_start``, owners and permutation."""
     num_tiles, depth_bits = B.key_bits(width, height, 16)
     kk, ko = B.expand_instances(p, cap, width=width, height=height)
+    again = B.expand_instances(p, cap, width=width, height=height)
     pk, po = B.expand_instances_plain(p, cap, width=width, height=height)
-    sorted_k = B.sort_instances(kk, ko, num_tiles=num_tiles,
-                                depth_bits=depth_bits)
-    sorted_p = B.sort_instances(pk, po, num_tiles=num_tiles,
-                                depth_bits=depth_bits)
-    if not torch.equal(sorted_k[2], sorted_p[2]):
-        raise AssertionError("expand: tile_start differs from plain")
-
-    def pairs(s_key, s_owner):
-        return torch.sort((s_key << 32) | s_owner.to(torch.int64))[0]
-
-    if not torch.equal(pairs(*sorted_k[:2]), pairs(*sorted_p[:2])):
-        raise AssertionError("expand: (key, owner) multisets differ")
-    demand = int(p.total)
-    return {"demand": demand, "kept": int(sorted_k[2][-1]),
-            "max_abs_err": 0.0}
+    for what, got, want in (("keys", kk, pk), ("owners", ko, po)):
+        if not torch.equal(got, want):
+            bad = (got != want).nonzero()[:4, 0].tolist()
+            raise AssertionError(f"expand: {what} differ from plain at "
+                                 f"slots {bad}")
+    if not (torch.equal(kk, again[0]) and torch.equal(ko, again[1])):
+        raise AssertionError("expand: two launches differ")
+    split = B.expand_partition(p.offsets, p.counts, cap)
+    if not torch.equal(split.cpu(),
+                       B.expand_partition_plain(p.offsets.cpu(), cap)):
+        raise AssertionError("expand: the blocks' split differs from plain")
+    kw = dict(num_tiles=num_tiles, depth_bits=depth_bits)
+    got = B.sort_instances(kk, ko, **kw)
+    ref = B.sort_instances_int64(kk, ko, **kw)
+    for what, a, b in zip(("owners", "tile_start", "perm"), got[1:],
+                          ref[1:]):
+        if not torch.equal(a, b):
+            raise AssertionError(f"sort_instances: {what} differ from the "
+                                 f"int64 path")
+    return {"demand": int(p.total), "kept": int(got[2][-1]),
+            "pieces": split.numel() - 1, "max_abs_err": 0.0}
 
 
 def check_forward(route: Route, table, tile_start, width: int, height: int,
@@ -491,6 +507,73 @@ def _nan_prep(p: B.Prep) -> B.Prep:
     return p._replace(u=u, v=v, rad2=rad2)
 
 
+def expand_case(rng, counts, device, width: int = 1920, height: int = 1080,
+                nan: bool = True) -> B.Prep:
+    """Expand inputs with the given instance counts: each gaussian's
+    rectangle holds its count inside the tile grid, its centre lies near
+    it (some tiles culled), and with ``nan`` three gaussians that own
+    instances have a NaN u, v and rad2."""
+    tw, th = -(-width // 16), -(-height // 16)
+    counts = np.asarray(counts, np.int32)
+    n = counts.size
+    nx = np.maximum(rng.integers(1, 33, n), -(-counts // th)).astype(np.int32)
+    ny = np.maximum(-(-counts // nx), 1)
+    tmin_x = rng.integers(0, tw - nx + 1).astype(np.int32)
+    tmin_y = rng.integers(0, th - ny + 1).astype(np.int32)
+    f = {"u": ((tmin_x + nx * rng.random(n)) * 16).astype(np.float32),
+         "v": ((tmin_y + ny * rng.random(n)) * 16).astype(np.float32),
+         "rad2": ((rng.random(n) * 64 * (nx + ny)) ** 2).astype(np.float32)}
+    owning = np.flatnonzero(counts > 0)
+    if nan and owning.size >= 3:
+        for k, name in enumerate(("u", "v", "rad2")):
+            f[name][owning[k * owning.size // 3]] = np.nan
+    _, depth_bits = B.key_bits(width, height, 16)
+    arrays = dict(offsets=(np.cumsum(counts) - counts).astype(np.int32),
+                  counts=counts, tmin_x=tmin_x, tmin_y=tmin_y, nx=nx,
+                  depth_key=rng.integers(0, 1 << depth_bits,
+                                         n).astype(np.int32), **f)
+    return B.Prep(**{k: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                     for k, a in arrays.items()},
+                  total=torch.tensor(int(counts.sum()), dtype=torch.int32,
+                                     device=device))
+
+
+def adversarial_expand(device, scale: Scale) -> dict:
+    """The expand kernel and the sort on inputs that stress the kernel's
+    split, at 1920x1080 (tiles whose key word has its top bit set), each
+    with NaN instances: zero-count runs longer than several blocks'
+    pieces, every count at mt 64 and at 256, overflow (demand past the
+    capacity), one gaussian and none; capacities not multiples of a
+    piece."""
+    rng = np.random.default_rng(11)
+    m = max(scale.check_splats // 10, 100)
+
+    def r(lo, hi, k):
+        return list(rng.integers(lo, hi, k))
+
+    cases = {
+        "zero_run": r(1, 65, m) + [0] * (5 * B.PIECE + 3) + r(0, 65, m)
+        + [0] * (B.PIECE + 1),
+        "all_mt64": [64] * m,
+        "all_mt256": [256] * (m // 4),
+        "overflow": r(0, 65, 4 * m),
+        "one": [37],
+        "none": [],
+    }
+    out = {}
+    for name, counts in cases.items():
+        total = int(sum(counts))
+        cap = (total // 2 + 7 if name == "overflow"
+               else max(total + B.PIECE // 3, 100))
+        chk = check_expand(expand_case(rng, counts, device), cap, 1920, 1080)
+        out[name] = (len(counts), total, cap, chk["pieces"])
+    log("  expand on adversarial inputs at 1920x1080, (gaussians, demand, "
+        "capacity, pieces): " + ", ".join(f"{k} {v}" for k, v in out.items())
+        + ": keys and owners bitwise equal to plain, the split equal, the "
+        "sort equal to the int64 path")
+    return out
+
+
 def _nan_table(table: torch.Tensor, tile_start: torch.Tensor
                ) -> torch.Tensor:
     """The instance table with NaN rows: one instance all NaN, one with a
@@ -529,6 +612,7 @@ def phase_kernels_vs_plain(device: torch.device, scale: Scale) -> dict:
     ex = check_expand(p, cap, w, h)
     ex_nan = check_expand(_nan_prep(p), cap, w, h)
     out = {"expand_err": max(ex["max_abs_err"], ex_nan["max_abs_err"])}
+    adversarial_expand(device, scale)
     g = torch.Generator(device=device)
     g.manual_seed(2)
     extra = torch.rand((colors.shape[0], 4), generator=g, device=device)

@@ -38,6 +38,7 @@ _P = ctypes.c_void_p
 _I32 = ctypes.c_int32
 _SIGNATURES = {
     "divshot_expand": [_P] * 9 + [_I32] * 5 + [_P, _P, _P],
+    "divshot_expand_partition": [_P, _P, _I32, _I32, _I32, _P, _P],
     "divshot_forward": [_P, ctypes.c_int64, _P, _I32, _I32, _I32, _I32,
                         ctypes.c_float, _P, _P, _P],
     "divshot_backward": [_P, ctypes.c_int64, _P, _I32, _I32, _I32, _I32,
@@ -135,7 +136,12 @@ def check_launch(name: str, err: int) -> None:
 
 
 def stream_ptr(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The current CUDA stream of ``device`` as a pointer (the raw handle:
+    building a ``torch.cuda.Stream`` object costs a few microseconds a
+    launch)."""
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if device.index is None
+        else device.index)
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None,

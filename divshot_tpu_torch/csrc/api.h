@@ -11,14 +11,24 @@ extern "C" {
 #endif
 
 // Run-length expansion of per-gaussian tile rectangles into `cap`
-// per-tile instance slots: see expand.cu.
+// per-tile instance slots: one int32 sort key (the unsigned (tile |
+// depth) word with its top bit flipped) and one owner a slot; see
+// expand.cu. Needs n + cap + 2048 < 2^31.
 int divshot_expand(const int32_t* offsets, const int32_t* counts,
                    const int32_t* tmin_x, const int32_t* tmin_y,
                    const int32_t* nx, const int32_t* depth_key,
                    const float* u, const float* v, const float* rad2,
                    int32_t n, int32_t cap, int32_t tiles_x,
                    int32_t tile_size, int32_t depth_bits,
-                   uint32_t* key_out, int32_t* owner_out, void* stream);
+                   int32_t* key_out, int32_t* owner_out, void* stream);
+
+// The split of divshot_expand's work, as its blocks find it: for each of
+// its `pieces` pieces the first gaussian of the piece's items, then n,
+// into `out` (pieces + 1); `pieces` must be the kernel's grid, ceil((n +
+// cap) / kPiece): see expand.cu.
+int divshot_expand_partition(const int32_t* offsets, const int32_t* counts,
+                             int32_t n, int32_t cap, int32_t pieces,
+                             int32_t* out, void* stream);
 
 // Front-to-back alpha compositing of depth-sorted instances per tile, in
 // two launches: see forward.cu. `work` is a workspace of

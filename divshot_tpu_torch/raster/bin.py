@@ -4,13 +4,21 @@
 ``prep`` computes each visible gaussian's tile rectangle, its instance count
 (capped at ``mt``) and exclusive offset, and its depth-key bits.
 ``expand_instances`` is the wrapper of the CUDA expand kernel
-(``csrc/expand.cu``): it writes one 32-bit (tile | depth) key and one owner
-per instance slot. ``expand_sorted`` sorts the keys, builds the per-tile
-ranges and, unless ``build_table=False`` (the surfel path builds its own),
-the feature table, as the JAX function does after its Pallas call.
+(``csrc/expand.cu``): it writes one sort key and one owner per instance
+slot. The key is the 32-bit (tile | depth) word with its top bit flipped,
+stored as int32, so that a signed sort orders it as the unsigned word;
+a culled slot holds ``CULLED_KEY``, which sorts last. ``sort_instances``
+sorts the keys and finds the per-tile ranges; ``expand_sorted`` runs the
+three and, unless ``build_table=False`` (the surfel path builds its own),
+builds the feature table, as the JAX function does after its Pallas call.
 ``segment_rows_sorted`` sums any per-instance rows of a backward kernel
 back to per-gaussian sums, without float atomics; ``reduce_grads_sorted``
 names the 3DGS backward's rows.
+
+The kernel merges the gaussians with the slots into one sequence and gives
+each block ``PIECE`` items of it (a piece); ``expand_partition`` writes out
+where each piece starts, as the kernel's blocks find it on the card, and
+``expand_partition_plain`` is its plain version.
 
 On a CPU tensor ``expand_instances`` runs ``expand_instances_plain``, the
 plain PyTorch version of the same function; on a CUDA tensor it launches
@@ -19,6 +27,7 @@ the kernel or raises.
 
 from __future__ import annotations
 
+import re
 from typing import NamedTuple
 
 import torch
@@ -26,8 +35,14 @@ import torch
 from divshot_tpu_torch import _build
 from divshot_tpu_torch.raster.raster import build_feature_table
 
-CULLED_KEY = 0xFFFFFFFF
+# the unsigned key word w is stored as w - 2^31 (its top bit flipped)
+KEY_BIAS = 1 << 31
+CULLED_KEY = 0xFFFFFFFF - KEY_BIAS
 NO_OWNER = 0x7FFFFFFF
+# merged items (gaussians and slots) a block of the expand kernel takes:
+# ``kPiece`` in csrc/expand.cu
+PIECE = int(re.search(r"constexpr int32_t kPiece = (\d+);",
+                      (_build.CSRC / "expand.cu").read_text()).group(1))
 
 
 class Prep(NamedTuple):
@@ -42,6 +57,9 @@ class Prep(NamedTuple):
     v: torch.Tensor
     rad2: torch.Tensor        # f32 squared cull radius
     total: torch.Tensor       # () int32 instance demand (before the cap)
+
+
+_PREP_DTYPES = (torch.int32,) * 6 + (torch.float32,) * 3
 
 
 class SortedBins(NamedTuple):
@@ -104,22 +122,24 @@ def prep(means2d, depths, radii, radii_xy, rad2, width: int, height: int,
 
 def expand_instances(p: Prep, cap: int, *, width: int, height: int,
                      tile_size: int = 16) -> tuple[torch.Tensor, torch.Tensor]:
-    """-> (keys (cap,) int32 holding the uint32 key bits, owners (cap,)
-    int32). CPU tensors take the plain version; CUDA tensors the kernel."""
+    """-> (keys (cap,) int32, owners (cap,) int32). CPU tensors take the
+    plain version; CUDA tensors the kernel."""
     if p.u.device.type == "cpu":
         return expand_instances_plain(p, cap, width=width, height=height,
                                       tile_size=tile_size)
     n = p.u.shape[0]
     dev = p.u.device
-    for name in ("offsets", "counts", "tmin_x", "tmin_y", "nx", "depth_key"):
-        _build.require(getattr(p, name), name, torch.int32, (n,), dev)
-    for name in ("u", "v", "rad2"):
-        _build.require(getattr(p, name), name, torch.float32, (n,), dev)
-    if not 0 < cap < 2 ** 31:
+    _build.require(p.u, "u", torch.float32, (n,))
+    for name, t, dtype in zip(Prep._fields, p, _PREP_DTYPES):
+        # the checks of _build.require, which raises with the reason
+        if (t.dtype != dtype or t.device != dev or t.shape != (n,)
+                or not t.is_contiguous()):
+            _build.require(t, name, dtype, (n,), dev)
+    if not 0 < cap < 2 ** 31 - PIECE - n:
         raise ValueError(f"instance capacity {cap} out of range")
     _, depth_bits = key_bits(width, height, tile_size)
-    keys = torch.empty((cap,), dtype=torch.int32, device=dev)
-    owners = torch.empty((cap,), dtype=torch.int32, device=dev)
+    keys, owners = torch.empty((2, cap), dtype=torch.int32,
+                               device=dev).unbind(0)
     err = _build.library().divshot_expand(
         p.offsets.data_ptr(), p.counts.data_ptr(), p.tmin_x.data_ptr(),
         p.tmin_y.data_ptr(), p.nx.data_ptr(), p.depth_key.data_ptr(),
@@ -141,7 +161,7 @@ def expand_instances_plain(p: Prep, cap: int, *, width: int, height: int,
     i = torch.arange(cap, dtype=torch.int32, device=dev)
     in_range = i < p.total
     if n == 0:
-        return (torch.full((cap,), -1, dtype=torch.int32, device=dev),
+        return (torch.full((cap,), CULLED_KEY, dtype=torch.int32, device=dev),
                 torch.full((cap,), NO_OWNER, dtype=torch.int32, device=dev))
     g = torch.clamp(torch.searchsorted(p.offsets, i, right=True) - 1, 0, n - 1)
     j = i - p.offsets[g]
@@ -159,21 +179,81 @@ def expand_instances_plain(p: Prep, cap: int, *, width: int, height: int,
     keep = dx * dx + dy * dy <= p.rad2[g]
     tile = (ty * tw + tx).to(torch.int64)
     key = torch.where(in_range & keep,
-                      (tile << depth_bits) | p.depth_key[g].to(torch.int64),
-                      CULLED_KEY)
+                      ((tile << depth_bits) | p.depth_key[g].to(torch.int64))
+                      - KEY_BIAS, CULLED_KEY)
     owner = torch.where(in_range, g.to(torch.int32), NO_OWNER)
     return key.to(torch.int32), owner.to(torch.int32)
 
 
+def expand_partition(offsets: torch.Tensor, counts: torch.Tensor,
+                     cap: int) -> torch.Tensor:
+    """The split of ``expand_partition_plain`` as the expand kernel's blocks
+    find it on the card (``divshot_expand_partition``); the plain version
+    for a CPU tensor. No host synchronisation; not counted as a path
+    launch."""
+    if offsets.device.type == "cpu":
+        return expand_partition_plain(offsets, cap)
+    n = offsets.shape[0]
+    _build.require(offsets, "offsets", torch.int32, (n,))
+    _build.require(counts, "counts", torch.int32, (n,), offsets.device)
+    pieces = -(-(n + cap) // PIECE)
+    out = torch.empty((pieces + 1,), dtype=torch.int32,
+                      device=offsets.device)
+    err = _build.library().divshot_expand_partition(
+        offsets.data_ptr(), counts.data_ptr(), n, cap, pieces,
+        out.data_ptr(), _build.stream_ptr(offsets.device))
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel expand_partition failed to launch: "
+                           f"cudaError_t {err}")
+    return out
+
+
+def expand_partition_plain(offsets: torch.Tensor, cap: int) -> torch.Tensor:
+    """-> (pieces + 1,) int32: the first gaussian of each piece of the
+    expand kernel's work, then ``n``. The kernel merges the gaussians'
+    places ``g + min(offsets[g], cap)`` with the ``cap`` slots, a gaussian
+    before its slots and the slots past the demand after every gaussian
+    (``offsets[g]`` never exceeds the demand, so the clamp at ``cap`` is
+    the clamp at ``min(demand, cap)``); piece ``c`` is the items ``[c PIECE,
+    (c+1) PIECE)``, so its gaussians are those whose place lies there and
+    its slots ``[c PIECE - g_c, (c+1) PIECE - g_(c+1))``."""
+    n = offsets.shape[0]
+    pieces = -(-(n + cap) // PIECE)
+    places = (torch.arange(n, dtype=torch.int64, device=offsets.device)
+              + torch.clamp_max(offsets.long(), cap))
+    d = torch.clamp_max(torch.arange(pieces + 1, dtype=torch.int64,
+                                     device=offsets.device) * PIECE, n + cap)
+    return torch.searchsorted(places, d).to(torch.int32)
+
+
 def sort_instances(keys, owners, *, num_tiles: int, depth_bits: int,
                    guard_lanes: int = 2048):
-    """(tile | depth) sort of the expanded instances -> (sorted keys as
-    int64, owners in that order, tile_start (T+1,) int32, the sort's
-    permutation: the expansion slot of each sorted instance). ``tile_start``
+    """(tile | depth) sort of the expanded instances -> (sorted keys, owners
+    in that order, tile_start (T+1,) int32, the sort's permutation: the
+    expansion slot of each sorted instance). One stable sort of the int32
+    keys, then one search of the ``T+1`` tile starts' keys: tile ``t``
+    starts at the first key ``>= t << depth_bits`` (biased); for ``t = T``
+    that is the first culled slot, whose key's tile field (all ones) lies
+    above ``T`` (``key_bits`` leaves room for ``T + 1``). ``tile_start``
     is clamped ``guard_lanes`` short of the capacity, as in JAX."""
     cap = keys.shape[0]
-    # torch.uint32 has thin op coverage: sort the key bits widened to int64
-    s_key, perm = torch.sort(keys.to(torch.int64) & CULLED_KEY, stable=True)
+    s_key, perm = torch.sort(keys, stable=True)
+    firsts = (torch.arange(num_tiles + 1, dtype=torch.int64,
+                           device=keys.device) << depth_bits) - KEY_BIAS
+    bounds = torch.searchsorted(s_key, firsts.to(torch.int32))
+    tile_start = torch.clamp_max(
+        bounds, max(cap - guard_lanes, cap // 2)).to(torch.int32)
+    return s_key, owners[perm], tile_start, perm
+
+
+def sort_instances_int64(keys, owners, *, num_tiles: int, depth_bits: int,
+                         guard_lanes: int = 2048):
+    """The int64 form of ``sort_instances``, the reference that the checks
+    hold it against: the unsigned key words widened to int64 and sorted,
+    the tile field shifted out and clamped, and one search of the tile
+    numbers. Same outputs, the keys as int64 words. No path calls it."""
+    cap = keys.shape[0]
+    s_key, perm = torch.sort(keys.to(torch.int64) + KEY_BIAS, stable=True)
     s_tile = torch.clamp_max(s_key >> depth_bits, num_tiles)
     bounds = torch.searchsorted(
         s_tile, torch.arange(num_tiles + 1, device=s_tile.device))

@@ -42,6 +42,7 @@ assert all(v == 0.0 for v in checks.values()), checks
 assert len(checks) == 13, checks
 for route in ("forward", "surfel_forward"):
     assert f"{route} unit split: bitwise equal to plain" in out
+assert "expand on adversarial inputs at 1920x1080" in out
 assert ("unit split frame: tile 1 units at [1366, 4096, 8192, 12288, 16384]"
         in out)
 assert [(r["scene"], r["name"]) for r in records] == [

@@ -79,8 +79,9 @@ def test_expand_plain_matches_loop(seed, mt, cap):
     keys, owners = B.expand_instances_plain(p, cap, width=cam.width,
                                             height=cam.height)
     want_k, want_o = _expand_loop(p, cap, cam.width, cam.height)
-    np.testing.assert_array_equal(keys.numpy().view(np.uint32),
-                                  want_k.astype(np.uint32))
+    np.testing.assert_array_equal(
+        keys.numpy().astype(np.int64) + B.KEY_BIAS,
+        want_k.astype(np.uint32).astype(np.int64))
     np.testing.assert_array_equal(owners.numpy(), want_o)
     assert int(p.total) == int(p.counts.sum())
     assert (int(p.total) > cap) == (cap == 400)
@@ -315,7 +316,8 @@ def test_nan_instances_are_culled_in_every_plain_kernel():
         k2, o2 = B.expand_instances_plain(p._replace(**{field: vals}), 4096,
                                           width=cam.width, height=cam.height)
         mine = o2 == g
-        assert bool(mine.any()) and bool((k2[mine] == -1).all()), field
+        assert bool(mine.any()) and bool((k2[mine] == B.CULLED_KEY).all()), \
+            field
         assert torch.equal(k2[~mine], keys[~mine])
         assert torch.equal(o2, owners)
 
@@ -466,8 +468,9 @@ def test_require_rejects_bad_inputs(bad, match):
 def test_sort_instances_ranges_and_guard():
     depth_bits = 20
     tiles = np.array([3, 0, 3, 1, 0, 3], np.int64)
-    keys = torch.tensor(((tiles << depth_bits) | np.arange(6)).astype(
-        np.int32).tolist() + [-1, -1], dtype=torch.int32)
+    keys = torch.tensor((((tiles << depth_bits) | np.arange(6))
+                         - B.KEY_BIAS).tolist() + [B.CULLED_KEY] * 2,
+                        dtype=torch.int32)
     owners = torch.arange(8, dtype=torch.int32)
     s_key, s_owner, start, perm = B.sort_instances(
         keys, owners, num_tiles=4, depth_bits=depth_bits, guard_lanes=0)

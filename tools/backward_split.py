@@ -135,7 +135,12 @@ def cell_frame(cs, cell: str, device, scale):
     1M-splat random scene of ``chip_smoke`` phase 4 at the frame size;
     ``bar_<name>`` (``bar_adc+``, ``bar_mcmc``, ``bar_2dgs``) the loss bar
     of that name in ``chip_smoke`` phases 5(a) and 6(a), trained for its
-    steps, view 0, the train loss."""
+    steps, view 0, the train loss; ``demo`` and ``demo2d`` view 0 of
+    ``apps.train --demo`` (with ``--model_type 1``) after its steps, the
+    train loss."""
+    import contextlib
+    import io
+
     import numpy as np
 
     from divshot_tpu_torch.apps.render import orbit_for_model
@@ -159,6 +164,17 @@ def cell_frame(cs, cell: str, device, scale):
                            tr.instance_capacity, route=route)
         return route, fr, cs.loss_cotangent(
             fr, cs.train_loss(tr.cfg, ds.images[0], fr.cam, tr.state.step))
+    if cell in ("demo", "demo2d"):
+        argv = ["--demo", "--iterations", str(scale.demo_iters), "--device",
+                device.type] + (["--model_type", "1"] if cell == "demo2d"
+                                else [])
+        with contextlib.redirect_stdout(io.StringIO()):
+            tr = cs.train_app.run(argv)
+        route = cs.SURFEL if cell == "demo2d" else cs.GAUSS
+        fr = cs.make_frame(tr.state.params, tr.dataset.cameras[0],
+                           tr.instance_capacity, route=route)
+        return route, fr, cs.loss_cotangent(fr, cs.train_loss(
+            tr.cfg, tr.dataset.images[0], fr.cam, tr.state.step))
     if cell == "random":
         params = random_scene(np.random.default_rng(0), scale.random_splats,
                               sh_degree=3, scale_range=(0.004, 0.025),

@@ -4,6 +4,7 @@ count the survivors of the cull in each cell's longest tile.
 
     python3 tools/forward_split.py [--root CHECKOUT] [--out FILE]
                                    [--units 256,4096] [--cells ...]
+    python3 tools/forward_split.py --binning [--root CHECKOUT] [--cells ...]
 
 For the forward kernels (``csrc/forward.cu``, ``csrc/surfel_forward.cu``)
 of the checkout at ``--root`` (default: this one) it builds variants from
@@ -41,6 +42,21 @@ eight longest tiles' lengths with the instances their pixels reach (the
 plain forward's ``reach``). One JSON line goes to stdout and to
 ``--out``. A rule that does not match the sources exactly once stops the
 tool.
+
+With ``--binning`` it builds no variant and times, with the checkout's
+own code, the stages around the forward at each cell (also ``demo`` and
+``demo2d``, the frames of ``apps.train --demo``): the expand kernel
+through its wrapper (``expand``, as ``chip_smoke`` times it) and through
+its C entry alone (``expand_entry``), the sort and the tile ranges
+(``sort+ranges``, ``sort_instances``) and the full frame (``frame``:
+``render_fast`` on the 3DGS route, a ``render_surfels`` forward on the
+surfel route), each with CUDA events; all but the frame also under
+``torch.profiler`` (each launch's device time, and the host's time to
+issue a call). With ``--items 4,8`` it also builds copies of the expand
+kernel whose threads walk that many items (``kItems``, a piece of 256
+times as many) and times each through its C entry (``expand_items<k>``).
+Run it on a parent (an unpacked ``git archive`` as ``--root``) and on the
+change in one call to compare them.
 """
 
 from __future__ import annotations
@@ -198,6 +214,102 @@ def survivor_stats(route, fr, cs, torch) -> dict:
                                for k in longest])
 
 
+_ITEMS = r"constexpr int kItems = \d+;"
+_PIECE = r"constexpr int32_t kPiece = \d+;"
+
+
+def expand_variants(csrc: Path, items: list[int], tmp: Path) -> dict:
+    """Copies of the expand kernel whose threads walk ``k`` items each (a
+    piece of 256 k), each built alone -> {k: library}."""
+    from divshot_tpu_torch import _build
+    src = (csrc / "expand.cu").read_text()
+    if len(re.findall(_ITEMS, src)) != 1 or len(re.findall(_PIECE, src)) != 1:
+        raise RuntimeError("--items: expand.cu has no kItems / kPiece")
+    procs = {}
+    for k in items:
+        d = tmp / f"items{k}"
+        shutil.copytree(csrc, d)
+        (d / "expand.cu").write_text(re.sub(_PIECE, (
+            f"constexpr int32_t kPiece = {256 * k};"), re.sub(
+                _ITEMS, f"constexpr int kItems = {k};", src)))
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(d / "lib.so"),
+               str(d / "expand.cu")]
+        procs[k] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for k, proc in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"items {k}: nvcc failed\n{out}")
+        lib = ctypes.CDLL(str(tmp / f"items{k}" / "lib.so"))
+        lib.divshot_expand.argtypes = _build._SIGNATURES["divshot_expand"]
+        libs[k] = lib
+    return libs
+
+
+def binning_cell(cs, route, fr, device, iters: int,
+                 variants: dict | None = None) -> dict:
+    """The binning stages of one cell's frame (``--binning``), ms; with
+    ``variants`` ({k: library} of ``expand_variants``) also each copy's
+    expand through its C entry (``expand_items<k>``), its keys and owners
+    held equal to the plain version's first."""
+    import torch
+
+    from divshot_tpu_torch import _build
+    from divshot_tpu_torch.raster import bin as B
+    from divshot_tpu_torch.raster.render import render_fast
+    w, h = fr.cam.width, fr.cam.height
+    num_tiles, depth_bits = B.key_bits(w, h, 16)
+    pp, cap = fr.pp, fr.cap
+    n = pp.u.shape[0]
+    keys, owners = B.expand_instances(pp, cap, width=w, height=h)
+    lib = _build.library()
+    cargs = [getattr(pp, f).data_ptr() for f in (
+        "offsets", "counts", "tmin_x", "tmin_y", "nx", "depth_key", "u", "v",
+        "rad2")] + [n, cap, -(-w // 16), 16, depth_bits, keys.data_ptr(),
+                    owners.data_ptr(),
+                    torch.cuda.current_stream(device).cuda_stream]
+
+    def entry(lib=lib):
+        if lib.divshot_expand(*cargs):
+            raise RuntimeError("expand: launch failed")
+
+    bg = torch.zeros((3,), device=device)
+
+    def frame():
+        with torch.no_grad():
+            if route is cs.GAUSS:
+                render_fast(fr.params, fr.cam, background=bg,
+                            instance_capacity=cap)
+            else:
+                route.render(fr.params, fr.cam, cap, fr.nch == cs.SR.MAX_CH)
+
+    fns = {
+        "expand": lambda: B.expand_instances(pp, cap, width=w, height=h),
+        "expand_entry": entry,
+        "sort+ranges": lambda: B.sort_instances(
+            fr.keys, fr.owners, num_tiles=num_tiles, depth_bits=depth_bits),
+        "frame": frame,
+    }
+    if variants:
+        want = B.expand_instances_plain(pp, cap, width=w, height=h)
+        for k, vlib in variants.items():
+            entry(vlib)
+            if not (torch.equal(keys, want[0])
+                    and torch.equal(owners, want[1])):
+                raise AssertionError(f"items {k}: differs from plain")
+            fns[f"expand_items{k}"] = lambda vlib=vlib: entry(vlib)
+    times = {k: cs.time_ms(fn, device, iters) for k, fn in fns.items()}
+    owning = int((pp.counts > 0).sum())
+    return dict(
+        times, profiler={k: device_split(fns[k], iters, torch)
+                         for k in fns if k != "frame"},
+        splats=n, owning=owning, demand=int(pp.total), capacity=cap,
+        kept=int(fr.tile_start[-1]),
+        # 9 words of each gaussian that owns instances, 8 bytes a slot
+        expand_bound_ms=(owning * 36 + cap * 8) / cs.PEAK_BYTES_S * 1e3)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
@@ -205,6 +317,8 @@ def main() -> int:
     ap.add_argument("--cells", default="train,train2d,model,model2d")
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--units", default="")
+    ap.add_argument("--binning", action="store_true")
+    ap.add_argument("--items", default="")
     args = ap.parse_args()
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -220,6 +334,24 @@ def main() -> int:
     device = torch.device("cuda")
     if not torch.cuda.is_available():
         raise RuntimeError("needs an NVIDIA card")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader", "-i", "0"],
+                         capture_output=True, text=True).stdout.strip()
+    if args.binning:
+        tmp = Path(tempfile.mkdtemp(prefix="binning_split_"))
+        items = [int(k) for k in args.items.split(",") if k]
+        variants = expand_variants(_build.CSRC, items, tmp) if items else {}
+        cells = {}
+        for cell in args.cells.split(","):
+            route, fr, _ = cell_frame(cs, cell, device, cs.FULL)
+            cells[cell] = binning_cell(cs, route, fr, device, args.iters,
+                                       variants)
+            print(f"{cell}: " + json.dumps(cells[cell]), flush=True)
+            del fr
+            torch.cuda.empty_cache()
+        shutil.rmtree(tmp, ignore_errors=True)
+        return _emit({"root": str(root), "binning": True, "card": smi,
+                      "cells": cells}, args.out)
     design = ("twopass" if any(
         "cull_walk_kernel" in (_build.CSRC / f).read_text()
         for f in ("forward.cu", "units.cuh")) else "ported")
@@ -316,17 +448,19 @@ def main() -> int:
         print(f"{cell}: " + json.dumps(rec), flush=True)
         del fr, out
         torch.cuda.empty_cache()
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader", "-i", "0"],
-                         capture_output=True, text=True).stdout.strip()
-    line = json.dumps({"root": str(root), "design": design, "card": smi,
-                       "cells": cells})
-    print(line)
-    if args.out:
-        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-        with open(args.out, "a") as f:
-            f.write(line + "\n")
     shutil.rmtree(tmp, ignore_errors=True)
+    return _emit({"root": str(root), "design": design, "card": smi,
+                  "cells": cells}, args.out)
+
+
+def _emit(rec: dict, out: str) -> int:
+    """Print ``rec`` as one JSON line, and append it to ``out`` if given."""
+    line = json.dumps(rec)
+    print(line)
+    if out:
+        Path(out).parent.mkdir(parents=True, exist_ok=True)
+        with open(out, "a") as f:
+            f.write(line + "\n")
     return 0
 
 
