@@ -53,7 +53,18 @@ Phases, each a function of ``(device, scale)``:
    of the expand and the two surfel kernels and holds them against their
    plain versions at its own shapes (the backward with the cotangent of
    its loss). Phase 3 also holds the surfel kernels against their plain
-   versions at nch 3 and 5, with NaN, edge-on and clamping surfels.
+   versions at nch 3 and 5, with NaN, edge-on and clamping surfels;
+7. the dataset path: (a) the procedural ``tpu_bricks`` scene traced on
+   the card at its full 800x800 (24 train and 8 test views, cut from 100 +
+   25 for the time limit) into a temporary directory and loaded; (b)
+   ``apps.train --source_path`` on it with ``--white_background 1`` and
+   ``--cap_max 262144``, evals, a periodic checkpoint and the final one,
+   stopped short of its schedule; (c) resumed with ``--load_itr -2`` to
+   the end. It checks the files, the checkpoint against the state saved
+   (bitwise), the eval curve kept up to the resume step, the final PLY
+   rendered against the final params (bitwise) and the eval PSNR rising;
+   it counts the launches of the resumed run and holds the three kernels
+   against their plain versions on its trained state.
 
 Both compositing routes, 3DGS and surfels, go through one harness
 (``Route``, ``Frame``, ``kernel_records``, ``stage_times``). It prints
@@ -86,7 +97,10 @@ from divshot_tpu_torch import _build
 from divshot_tpu_torch.apps import train as train_app
 from divshot_tpu_torch.apps.render import orbit_for_model, render_orbit
 from divshot_tpu_torch.core.config import DensifyStrategy, TrainConfig
+from divshot_tpu_torch.gsio.datasets import load_dataset
 from divshot_tpu_torch.gsio.io import load_model
+from divshot_tpu_torch.gsio.ply import load_ply
+from divshot_tpu_torch.gsio.procedural import generate_dataset
 from divshot_tpu_torch.gsio.synthetic import (orbit_cameras, random_scene,
                                               render_gt_images)
 from divshot_tpu_torch.raster import bin as B
@@ -98,6 +112,7 @@ from divshot_tpu_torch.raster.units import (UNIT, backward_schedule,
                                             backward_schedule_plain,
                                             forward_cull_plain, is_long)
 from divshot_tpu_torch.splat.gaussians import GaussianParams, init_from_points
+from divshot_tpu_torch.train import checkpoint as CK
 from divshot_tpu_torch.train.losses import photometric_loss
 from divshot_tpu_torch.train.trainer import (Dataset, Trainer, TrainState,
                                              geometry_loss,
@@ -275,12 +290,20 @@ class Scale:
     train_iters: int
     demo_iters: int       # steps of apps.train --demo (0: not run)
     bars2d_iters: int     # steps of the 2DGS loss bar
+    data_res: int         # phase 7: tpu_bricks' width and height, its
+    data_views: tuple     # train and test views, the app's capacity, its
+    data_capacity: int    # num_iters, the steps of the first run, and
+    data_iters: int       # eval_every, checkpoint_every and
+    data_first: int       # reset_alpha_every
+    data_every: tuple
 
 
 FULL = Scale(1920, 1080, 4, 1, 1_000_000, 1 << 24, 50_000, 512, 10,
-             150, 50_000, 100_000, 1 << 17, 800, 4, 30, 20, 60)
+             150, 50_000, 100_000, 1 << 17, 800, 4, 30, 20, 60,
+             800, (24, 8), 262_144, 500, 300, (100, 200, 100))
 TINY = Scale(64, 48, 1, 512, 1_500, 1 << 16, 400, 64, 1,
-             3, 300, 500, 1 << 10, 64, 2, 2, 0, 3)
+             3, 300, 500, 1 << 10, 64, 2, 2, 0, 3,
+             32, (3, 2), 1024, 12, 8, (4, 4, 3))
 
 
 def log(msg: str) -> None:
@@ -1450,8 +1473,6 @@ def train_demo(device: torch.device, scale: Scale, flags=(),
     renders included; the launches per step are counted over the steps
     after the first."""
     buf = io.StringIO()
-    argv = ["--demo", "--iterations", str(scale.demo_iters), "--device",
-            device.type, *flags]
     after_first = {}
 
     def step_done(i, state, m):
@@ -1459,8 +1480,12 @@ def train_demo(device: torch.device, scale: Scale, flags=(),
             after_first.update(_build.LAUNCHES)
 
     def run():
-        with contextlib.redirect_stdout(buf):
-            return train_app.run(argv, callback=step_done)
+        with tempfile.TemporaryDirectory() as out, \
+                contextlib.redirect_stdout(buf):
+            return train_app.run(
+                ["--demo", "--iterations", str(scale.demo_iters),
+                 "--device", device.type, "--model_path", out, *flags],
+                callback=step_done)
 
     tr, launches = count_launches(run, device, scale.demo_iters,
                                   f"(d) {label} app run", only_steps=False,
@@ -1469,7 +1494,7 @@ def train_demo(device: torch.device, scale: Scale, flags=(),
         log(f"  (d) {line}")
     if tr is None:
         raise AssertionError("apps.train --demo did not train")
-    last = buf.getvalue().strip().splitlines()[-1]
+    last = progress_lines(buf.getvalue())[-1]
     loss = float(last.split("loss=")[1].split()[0])
     if not math.isfinite(loss):
         raise AssertionError("apps.train --demo: non-finite loss")
@@ -1484,6 +1509,13 @@ def train_demo(device: torch.device, scale: Scale, flags=(),
     for r in recs:
         r["launches_per_step"] = per_step[r["name"]]
     return recs
+
+
+def progress_lines(out: str) -> list[str]:
+    """The train app's per-step progress lines (``[step/total] loss=...``)
+    in its output."""
+    return [ln for ln in out.splitlines()
+            if ln.startswith("[") and "loss=" in ln]
 
 
 def bench_records(scene: str, bench: dict, route: Route,
@@ -1687,6 +1719,138 @@ def phase_training_2dgs(device: torch.device, scale: Scale) -> list[dict]:
 
 
 # --------------------------------------------------------------------------
+# the dataset path: a scene on disk to checkpoints, an eval curve and a PLY
+
+
+def _app_run(argv: list[str], device: torch.device, what: str,
+             steps: int, max_steps: int | None = None):
+    """``apps.train.run(argv)`` with its launch counts, its output echoed
+    -> (the trainer, the counts, the output)."""
+    buf = io.StringIO()
+
+    def run():
+        with contextlib.redirect_stdout(buf):
+            return train_app.run(argv, max_steps=max_steps)
+
+    tr, launches = count_launches(run, device, steps, what,
+                                  only_steps=False)
+    for line in buf.getvalue().splitlines():
+        log(f"  {line}")
+    if tr is None:
+        raise AssertionError(f"{what}: the app did not train")
+    return tr, launches, buf.getvalue()
+
+
+def _same_state(a: dict, b: dict, what: str) -> None:
+    """Two ``checkpoint.state_dict``s bitwise equal."""
+    for k in ("params", "mu", "nu", "dstate"):
+        for f, t in a[k].items():
+            if not torch.equal(t, b[k][f]):
+                raise AssertionError(f"{what}: {k}.{f} differs")
+    for k in ("step", "sampler", "instance_capacity"):
+        if a.get(k) != b.get(k):
+            raise AssertionError(f"{what}: {k} differs")
+    if not torch.equal(a["gen"], b["gen"]):
+        raise AssertionError(f"{what}: the generator's state differs")
+
+
+def phase_dataset(device: torch.device, scale: Scale) -> list[dict]:
+    """(a) ``tpu_bricks`` generated by the port's tracer at its full
+    800x800 into a temporary directory (24 train and 8 test views, cut from
+    100 + 25 for the time limit) and loaded; (b) ``apps.train
+    --source_path`` on it for ``data_first`` of ``data_iters`` steps, with
+    evals, a periodic checkpoint and the final one; (c) resumed with
+    ``--load_itr -2`` to the end. Checks: the files; the checkpoint read
+    back bitwise equal to the state saved; the resumed eval curve keeping
+    the entries up to the resume step; the final ``point_cloud.ply`` read
+    back and rendered bitwise equal to the final params rendered; the eval
+    PSNR finite and higher at the last eval than at the first. Then the
+    three kernels against their plain versions on the trained state."""
+    res, (n_train, n_test) = scale.data_res, scale.data_views
+    eval_every, ckpt_every, reset_every = scale.data_every
+    with tempfile.TemporaryDirectory() as tmp:
+        data, model = f"{tmp}/tpu_bricks", f"{tmp}/model"
+        t0 = time.perf_counter()
+        generate_dataset(data, n_train=n_train, n_test=n_test, width=res,
+                         height=res, device=device)
+        gen_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        train_ds, eval_ds = load_dataset(data, device=device,
+                                         white_background=True)
+        sync(device)
+        load_s = time.perf_counter() - t0
+        if (train_ds.images.shape != (n_train, res, res, 3)
+                or eval_ds is None or eval_ds.num_views != n_test):
+            raise AssertionError("tpu_bricks: the loaded dataset's shape")
+        log(f"  (a) tpu_bricks at {res}x{res}, {n_train} train and {n_test} "
+            f"test views (cut from 100 + 25 for the time limit): generated "
+            f"in {gen_s:.2f} s, loaded in {load_s:.2f} s")
+        del train_ds, eval_ds
+        argv = ["--source_path", data, "--model_path", model, "--device",
+                device.type, "--white_background", "1", "--cap_max",
+                str(scale.data_capacity), "--iterations",
+                str(scale.data_iters), "--eval_every", str(eval_every),
+                "--checkpoint_every", str(ckpt_every), "--reset_alpha_every",
+                str(reset_every)]
+        first = scale.data_first
+        tr, _, out1 = _app_run(argv, device, "(b) apps.train --source_path",
+                               first, max_steps=first)
+        for name in ("metrics.csv", "eval_curve.json", "point_cloud.ply",
+                     f"iteration_{ckpt_every}/state.pt",
+                     f"iteration_{first}/state.pt",
+                     f"iteration_{first}/point_cloud.ply"):
+            if not Path(model, name).exists():
+                raise AssertionError(f"(b) {name} was not written")
+        _same_state(CK.load_state_dict(model, first), CK.state_dict(
+            tr.state, tr._np_rng, tr.instance_capacity),
+            f"(b) iteration_{first}")
+        curve1 = json.loads(Path(model, "eval_curve.json").read_text())
+        tr, launches, out2 = _app_run(argv + ["--load_itr", "-2"], device,
+                                      "(c) resumed with --load_itr -2",
+                                      scale.data_iters - first)
+        if f"resumed from iteration_{first}" not in out2:
+            raise AssertionError("(c) did not resume from the checkpoint")
+        curve = json.loads(Path(model, "eval_curve.json").read_text())
+        if curve[:len(curve1)] != curve1 or curve[len(curve1)]["step"] <= \
+                first:
+            raise AssertionError("(c) the resumed eval curve lost entries")
+        psnrs = [e["psnr"] for e in curve]
+        if not (all(math.isfinite(x) for x in psnrs)
+                and psnrs[-1] > psnrs[0]):
+            raise AssertionError(f"eval PSNR {psnrs}")
+        # the PLY read back renders as the params it was written from
+        ply, _ = load_ply(f"{model}/point_cloud.ply", device=device)
+        cam = tr.dataset.cameras[0]
+        bg = torch.ones((3,), device=device)
+        with torch.no_grad():
+            a = render(tr.state.params, cam, background=bg,
+                       instance_capacity=tr.instance_capacity)
+            b = render(ply, cam, background=bg,
+                       instance_capacity=tr.instance_capacity)
+        if not (torch.equal(a.image, b.image)
+                and torch.equal(a.alpha, b.alpha)):
+            raise AssertionError("point_cloud.ply renders otherwise than "
+                                 "the params it was written from")
+    its = [float(ln.split("(")[1].split()[0]) for ln in
+           (out1 + out2).splitlines() if ln.startswith("trained ")]
+    vps = [float(ln.rsplit(", ", 1)[1].split()[0]) for ln in
+           (out1 + out2).splitlines() if ln.startswith("[eval @")]
+    log(f"  eval PSNR over the run: "
+        + ", ".join(f"{e['step']}: {e['psnr']:.3f}" for e in curve))
+    log(f"  dataset path: generation {gen_s:.2f} s, load {load_s:.2f} s, "
+        f"train {its[0]:.2f} / {its[1]:.2f} it/s (first run / resumed; "
+        f"evals and checkpoints excluded), eval "
+        f"{min(vps):.1f}-{max(vps):.1f} views/s; checkpoint bitwise equal "
+        f"to the state saved, PLY render bitwise equal to the params'")
+    recs = trainer_records(f"tpu_bricks_data_{res}", tr, device, scale,
+                           launches, scale.data_iters - first)
+    for r in recs:
+        r.update(it_per_s=its[1], eval_views_per_s=max(vps),
+                 gen_s=gen_s, load_s=load_s, eval_psnr=psnrs[-1])
+    return recs
+
+
+# --------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1707,6 +1871,7 @@ def main() -> int:
     records = run("4 main path", phase_main_path)
     records += run("5 training path", phase_training)
     records += run("6 2DGS training path", phase_training_2dgs)
+    records += run("7 dataset path", phase_dataset)
     log(f"all phases ok in {time.perf_counter() - t_all:.2f} s")
     print(json.dumps({"kernels": records}))
     print(ident["smi"] or f"{ident['kind']}, power limit not readable")

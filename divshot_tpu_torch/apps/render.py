@@ -13,36 +13,17 @@ from __future__ import annotations
 
 import argparse
 import os
-import struct
 import sys
-import zlib
 
 import numpy as np
 import torch
 
 from divshot_tpu_torch.gsio.io import load_model
+from divshot_tpu_torch.gsio.png import write_png
 from divshot_tpu_torch.gsio.synthetic import orbit_cameras
 from divshot_tpu_torch.raster.render import FastBins, render_fast
 from divshot_tpu_torch.splat.camera import Camera
 from divshot_tpu_torch.splat.gaussians import GaussianParams
-
-
-def write_png(path: str, rgb: np.ndarray) -> None:
-    """Write an (H, W, 3) uint8 image as an 8-bit RGB PNG (stdlib only)."""
-    h, w, _ = rgb.shape
-    raw = np.concatenate(
-        [np.zeros((h, 1), np.uint8), rgb.reshape(h, w * 3)], axis=1)
-
-    def chunk(tag: bytes, data: bytes) -> bytes:
-        body = tag + data
-        return (struct.pack(">I", len(data)) + body
-                + struct.pack(">I", zlib.crc32(body) & 0xFFFFFFFF))
-
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n")
-        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
-        f.write(chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)))
-        f.write(chunk(b"IEND", b""))
 
 
 def orbit_for_model(params: GaussianParams, num: int, *, radius: float,

@@ -1,24 +1,34 @@
 """Headless trainer CLI (counterpart of ``divshot_tpu/apps/train.py``).
 
+  python -m divshot_tpu_torch.apps.train --source_path <scene> \\
+      --model_path out/ [--eval_every N] [--checkpoint_every M] \\
+      [--load_itr -2] [--device cuda|cpu] [other trainer flags]
   python -m divshot_tpu_torch.apps.train --demo [--iterations N]
-      [--device cuda|cpu] [other trainer flags]
 
-``--demo`` trains on a synthetic scene, as the JAX app does: 20K ground-
-truth splats rendered from 32 orbit views at 400 px, and a fresh model
-initialised from every fourth ground-truth centre. Progress goes to
-standard output; the app writes no file.
+The JAX app's flow: load the dataset (blender or COLMAP, ``gsio/datasets``;
+with no seed points, a random init in the cube +-1.3) or, with ``--demo``,
+the synthetic scene (20K ground-truth splats rendered from 32 orbit views
+at 400 px, no eval split); resume from ``--load_itr`` (-2: the latest
+checkpoint); train, writing ``metrics.csv`` every 100 steps, a checkpoint
+every ``checkpoint_every`` steps once past ``reset_alpha_every``, and the
+eval curve ``eval_curve.json`` every ``eval_every`` steps (a resumed run
+keeps the entries up to its start); then the final checkpoint, the final
+``point_cloud.ply`` (on 2DGS with the flat third axis) and the final eval.
+Progress goes to standard output. Runs on the card unless ``--device cpu``
+is given.
 
 Ported: the static trainer, 3DGS and 2DGS (``--model_type 1``, exact
 surfels by default, ``--surfel_exact 0`` the flattened approximation),
 the geometry losses, and the ADC, ADC+ and MCMC strategies. The flags of
-what is not ported yet (datasets, checkpoints, evaluation, PLY and mesh
-export and the other options the trainer rejects) raise
-``NotImplementedError`` naming ROADMAP.md.
+what is not ported yet (mesh export and the options the trainer rejects)
+raise ``NotImplementedError`` naming ROADMAP.md.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
+import os
 import sys
 import time
 
@@ -33,16 +43,6 @@ DEMO_WIDTH = 400
 # flags of the JAX app whose features are not ported, as (config field,
 # what it needs)
 _UNPORTED_FIELDS = (
-    ("source_path", "dataset loaders"),
-    ("dataset_type", "dataset loaders"),
-    ("max_image_width", "dataset loaders"),
-    ("max_image_height", "dataset loaders"),
-    ("max_image_count", "dataset loaders"),
-    ("model_path", "checkpoints and PLY export"),
-    ("checkpoint_every", "checkpoints"),
-    ("load_itr", "checkpoint resume"),
-    ("eval_holdout", "evaluation"),
-    ("eval_every", "evaluation"),
     ("export_mesh", "mesh export"),
     ("mesh_resolution", "mesh export"),
 )
@@ -62,33 +62,11 @@ def check_flags(cfg) -> None:
     check_supported(cfg)
 
 
-def run(argv=None, callback=None):
-    """What the command line runs -> the ``Trainer`` after its steps, or
-    None when no data source is given. ``callback(i, state, metrics)``,
-    when given, is called after each step."""
-    import torch
-
-    from divshot_tpu_torch.core.config import (auto_tune_config,
-                                               config_from_flags)
+def _demo_data(cfg, device):
     from divshot_tpu_torch.gsio.synthetic import (orbit_cameras,
                                                   random_scene,
                                                   render_gt_images)
-    from divshot_tpu_torch.splat.gaussians import init_from_points
-    from divshot_tpu_torch.train.trainer import Dataset, Trainer
-
-    p = argparse.ArgumentParser(add_help=False, allow_abbrev=False)
-    p.add_argument("--demo", action="store_true")
-    p.add_argument("--device", default="cuda")
-    ns, rest = p.parse_known_args(sys.argv[1:] if argv is None else argv)
-    device = torch.device(ns.device)
-    cfg = config_from_flags(rest)
-    check_flags(cfg)
-    if not ns.demo:
-        print("error: --demo is the only data source ported so far "
-              "(dataset loaders: ROADMAP.md, Queue A)")
-        return None
-
-    t0 = time.perf_counter()
+    from divshot_tpu_torch.train.trainer import Dataset
     rng = np.random.default_rng(cfg.seed)
     gt = random_scene(rng, DEMO_SPLATS, sh_degree=cfg.sh_degree,
                       scale_range=(0.004, 0.03), device=device)
@@ -99,33 +77,185 @@ def run(argv=None, callback=None):
     ds = Dataset.from_views(cams, images)
     points = gt.means.cpu().numpy()[::4]
     colors = np.full((points.shape[0], 3), 0.5, np.float32)
+    return ds, None, points, colors
+
+
+def _dataset(cfg, device):
+    from divshot_tpu_torch.gsio.datasets import load_dataset
+    ds, eval_ds = load_dataset(
+        cfg.source_path, cfg.dataset_type, device=device,
+        max_width=cfg.max_image_width, max_height=cfg.max_image_height,
+        eval_holdout=cfg.eval_holdout, max_images=cfg.max_image_count,
+        white_background=cfg.white_background, use_mask=cfg.use_mask)
+    points, colors = ds.points, ds.colors
+    if points is None:
+        # no SfM cloud (blender): a random init in the cameras' bounds
+        rng = np.random.default_rng(cfg.seed)
+        n0 = min(100_000, int(cfg.densify.cap_max))
+        points = rng.uniform(-1.3, 1.3, (n0, 3)).astype(np.float32)
+        colors = rng.uniform(0, 1, (n0, 3)).astype(np.float32)
+    return ds, eval_ds, points, colors
+
+
+def run(argv=None, callback=None, max_steps: int | None = None):
+    """What the command line runs -> the ``Trainer`` after its steps, or
+    None when no data source is given. ``callback(i, state, metrics)``,
+    when given, is called after each step. ``max_steps`` stops the run
+    after that many steps of this call (the schedules still follow
+    ``num_iters``); the final checkpoint, PLY and eval are then at the
+    step reached."""
+    import torch
+
+    from divshot_tpu_torch.core.config import (ModelType, auto_tune_config,
+                                               config_from_flags)
+    from divshot_tpu_torch.core.metrics import (MetricsWriter, PhaseTracker,
+                                                TrainingStatus)
+    from divshot_tpu_torch.gsio.ply import save_ply
+    from divshot_tpu_torch.splat.gaussians import init_from_points
+    from divshot_tpu_torch.train import checkpoint as CK
+    from divshot_tpu_torch.train.evaluate import evaluate
+    from divshot_tpu_torch.train.geometry import flatten_to_surfels
+    from divshot_tpu_torch.train.trainer import Trainer
+
+    p = argparse.ArgumentParser(add_help=False, allow_abbrev=False)
+    p.add_argument("--demo", action="store_true")
+    p.add_argument("--device", default="cuda")
+    ns, rest = p.parse_known_args(sys.argv[1:] if argv is None else argv)
+    device = torch.device(ns.device)
+    cfg = config_from_flags(rest)
+    check_flags(cfg)
+    phase = PhaseTracker()
+    phase.set(TrainingStatus.LOADING_PREPARE)
+
+    t0 = time.perf_counter()
+    if ns.demo:
+        ds, eval_ds, points, colors = _demo_data(cfg, device)
+    elif not cfg.source_path:
+        print("error: --source_path required (or --demo)")
+        return None
+    else:
+        ds, eval_ds, points, colors = _dataset(cfg, device)
     cfg = auto_tune_config(cfg, ds.num_views)
+    phase.set(TrainingStatus.GS)
     params = init_from_points(points, colors, sh_degree=cfg.sh_degree,
                               capacity=int(cfg.densify.cap_max),
                               device=device)
+    phase.set(TrainingStatus.PREPROCESS_DONE)
+    model_path = cfg.model_path or "output"
+    os.makedirs(model_path, exist_ok=True)
+    surfel2d = cfg.model_type == ModelType.GS2D
     trainer = Trainer(cfg, ds, params)
-    n = cfg.num_iters
-    print(f"demo: {ds.num_views} views at {cams[0].width}x{cams[0].height}, "
-          f"{points.shape[0]} initial splats, capacity {params.capacity}, "
-          f"{n} iterations on {device} (set-up "
-          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+    cam0 = ds.cameras[0]
+    print(f"{'demo' if ns.demo else cfg.source_path}: {ds.num_views} "
+          f"views at {cam0.width}x{cam0.height}"
+          + (f" ({eval_ds.num_views} eval)" if eval_ds is not None else "")
+          + f", {points.shape[0]} initial splats, capacity "
+          f"{params.capacity}, {cfg.num_iters} iterations on {device} "
+          f"(set-up {time.perf_counter() - t0:.1f} s)", flush=True)
+
+    load_itr = cfg.load_itr
+    if load_itr == -2:  # latest
+        load_itr = CK.latest_step(model_path) or -1
+    if load_itr > 0:
+        CK.resume_trainer(model_path, trainer, load_itr)
+        print(f"resumed from iteration_{load_itr}", flush=True)
+
+    phase.set(TrainingStatus.TRAINING)
+    metrics_csv = MetricsWriter(os.path.join(model_path, "metrics.csv"))
+    start = trainer.state.step
+    n = cfg.num_iters - start
+    if max_steps is not None:
+        n = max(0, min(n, max_steps))
+    end = start + n
+    bg = torch.ones((3,), device=device) if cfg.white_background else None
+    curve_path = os.path.join(model_path, "eval_curve.json")
+    eval_curve: list[dict] = []
+    if start > 0 and os.path.exists(curve_path):
+        # on resume, keep the earlier entries: the eval history is the
+        # quality record
+        with open(curve_path) as f:
+            eval_curve = [e for e in json.load(f) if e["step"] <= start]
+    timer = {"eval_s": 0.0, "save_s": 0.0}
+
+    def run_eval(step):
+        if eval_ds is None:
+            return None
+        t = time.perf_counter()
+        p_eval = trainer.state.params
+        if surfel2d and not cfg.surfel_exact:
+            # the flattened route renders through the 3DGS kernels: eval
+            # the surfel convention (third axis clamped), as the step does
+            p_eval = flatten_to_surfels(p_eval)
+        # the instance capacity is read at each eval: the trainer grows it
+        ev = evaluate(p_eval, eval_ds, background=bg, render_kwargs={
+            "backend": "surfel_pallas" if surfel2d and cfg.surfel_exact
+            else "pallas",
+            "instance_capacity": trainer.instance_capacity,
+            "antialiased": cfg.raster.mip_antialiased})
+        eval_curve.append({"step": step, "psnr": ev["psnr"],
+                           "ssim": ev["ssim"],
+                           "num_alive": trainer.state.params.num_alive})
+        metrics_csv.write(step, {"eval_psnr": ev["psnr"],
+                                 "eval_ssim": ev["ssim"]})
+        with open(curve_path, "w") as f:
+            json.dump(eval_curve, f, indent=1)
+        timer["eval_s"] += time.perf_counter() - t
+        return ev
 
     every = max(1, min(100, n // 10))
     t_run = time.perf_counter()
 
-    def report(i, state, m):
-        step = i + 1
-        if step == 1 or step % every == 0 or step == n:
+    def step_done(i, state, m):
+        step = start + i + 1
+        if step % 100 == 0:
+            metrics_csv.write(step, m)
             trainer.check_overflow(m)
-            print(f"[{step}/{n}] loss={float(m['loss']):.4f} "
+        if step == start + 1 or (i + 1) % every == 0 or step == end:
+            elapsed = time.perf_counter() - t_run - timer["eval_s"] \
+                - timer["save_s"]
+            print(f"[{step}/{cfg.num_iters}] loss={float(m['loss']):.4f} "
                   f"psnr={float(m['psnr']):.2f} "
                   f"alive={int(m['num_alive'])} "
-                  f"({step / (time.perf_counter() - t_run):.1f} it/s)",
-                  flush=True)
+                  f"({(i + 1) / elapsed:.1f} it/s)", flush=True)
+        if (step % cfg.checkpoint_every == 0
+                and step > cfg.densify.reset_alpha_every):
+            t = time.perf_counter()
+            CK.save_trainer(model_path, trainer, step=step)
+            timer["save_s"] += time.perf_counter() - t
+        if cfg.eval_every and step % cfg.eval_every == 0:
+            ev = run_eval(step)
+            if ev:
+                print(f"[eval @ {step}] PSNR {ev['psnr']:.2f} dB  SSIM "
+                      f"{ev['ssim']:.4f} ({ev['n_views']} views, "
+                      f"{ev['views_per_s']:.1f} views/s)", flush=True)
+        phase.progress = step / cfg.num_iters
         if callback is not None:
             callback(i, state, m)
 
-    trainer.run(n, log_every=0, callback=report)
+    trainer.run(n, log_every=0, callback=step_done)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    train_s = time.perf_counter() - t_run - timer["eval_s"] - timer["save_s"]
+    print(f"trained {n} steps in {train_s:.2f} s ({n / max(train_s, 1e-9):.2f}"
+          f" it/s, evals and checkpoints excluded)", flush=True)
+    phase.set(TrainingStatus.TRAINING_DONE, 1.0)
+
+    CK.save_trainer(model_path, trainer, step=end)
+    out_ply = os.path.join(model_path, "point_cloud.ply")
+    save_params = trainer.state.params
+    if surfel2d:
+        # persist the surfel convention: the third axis at the flat
+        # log-scale, so the PLY renders the same through any 3DGS consumer
+        save_params = flatten_to_surfels(save_params)
+    save_ply(out_ply, save_params, antialiased=cfg.raster.mip_antialiased)
+    print(f"saved {out_ply}")
+
+    ev = run_eval(end)
+    if ev is not None:
+        print(f"final eval over {ev['n_views']} views: PSNR "
+              f"{ev['psnr']:.2f} dB  SSIM {ev['ssim']:.4f} "
+              f"({ev['views_per_s']:.1f} views/s)", flush=True)
+    metrics_csv.close()
     return trainer
 
 

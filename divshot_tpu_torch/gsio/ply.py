@@ -1,13 +1,19 @@
-"""Standard 3DGS PLY loading (counterpart of ``divshot_tpu/gsio/ply.py:41-119``).
+"""Standard 3DGS PLY and antimatter15 ``.splat`` I/O (counterpart of
+``divshot_tpu/gsio/ply.py``), byte for byte the files the JAX package
+writes.
 
 Record layout of the files this repo writes: 59 float32 per splat (x y z,
 f_dc_0..2, f_rest_0..44 channel-major, opacity logit, scale_0..2 log,
-rot_0..3 wxyz). The reader also takes graphdeco files with normals and any
-property order. Parsing is numpy only; the arrays become tensors at the end.
+rot_0..3 wxyz); the antialiasing flag is the header comment
+``splatx.anti_aliasing=1``. The reader also takes graphdeco files with
+normals and any property order. Parsing and packing are numpy only; the
+arrays become tensors at the end. The writers drop dead splats
+(``GaussianParams.compact_numpy``).
 """
 
 from __future__ import annotations
 
+import io
 from dataclasses import dataclass
 
 import numpy as np
@@ -109,3 +115,102 @@ def load_ply(path: str, *, device="cuda") -> tuple[GaussianParams, dict]:
         shN=a["shN"] if a["shN"].shape[1] else None,
         sh_degree=meta["sh_degree"], device=device)
     return params, meta
+
+
+def save_ply(path: str, params: GaussianParams, *,
+             antialiased: bool = False) -> None:
+    """Write the tinygsplat-layout 3DGS PLY (59 floats, no normals)."""
+    d = params.compact_numpy()
+    n = d["means"].shape[0]
+    k = d["shN"].shape[1]
+
+    header = io.BytesIO()
+    header.write(b"ply\nformat binary_little_endian 1.0\n")
+    header.write(b"comment generated by divshot_tpu\n")
+    if antialiased:
+        header.write(b"comment splatx.anti_aliasing=1\n")
+    header.write(f"element vertex {n}\n".encode())
+    for nm in ("x", "y", "z", "f_dc_0", "f_dc_1", "f_dc_2"):
+        header.write(f"property float {nm}\n".encode())
+    for i in range(45):  # the format always carries 45 rest floats
+        header.write(f"property float f_rest_{i}\n".encode())
+    for nm in ("opacity", "scale_0", "scale_1", "scale_2",
+               "rot_0", "rot_1", "rot_2", "rot_3"):
+        header.write(f"property float {nm}\n".encode())
+    header.write(b"end_header\n")
+
+    rec = np.zeros((n, 59), np.float32)
+    rec[:, 0:3] = d["means"]
+    rec[:, 3:6] = d["sh0"]
+    rest = np.zeros((n, 3, 15), np.float32)
+    if k:
+        rest[:, :, :k] = d["shN"].transpose(0, 2, 1)  # channel-major
+    rec[:, 6:51] = rest.reshape(n, 45)
+    rec[:, 51] = d["opacity"]
+    rec[:, 52:55] = d["scales"]
+    rec[:, 55:59] = d["quats"]
+    with open(path, "wb") as f:
+        f.write(header.getvalue())
+        f.write(rec.tobytes())
+
+
+# ---------------------------------------------------------------------------
+# antimatter15 .splat: 32 bytes a splat (xyz and linear scales as float32,
+# RGBA and the quaternion as uint8)
+
+SH_C0 = 0.28209479177387814
+
+
+def save_splat(path: str, params: GaussianParams) -> None:
+    d = params.compact_numpy()
+    n = d["means"].shape[0]
+    buf = np.zeros((n, 32), np.uint8)
+    f32 = buf.view("<f4").reshape(n, 8)
+    f32[:, 0:3] = d["means"]
+    f32[:, 3:6] = np.exp(d["scales"])
+    color = np.clip((0.5 + SH_C0 * d["sh0"]) * 255, 0, 255).astype(np.uint8)
+    buf[:, 24:27] = color
+    buf[:, 27] = np.clip(
+        (1 / (1 + np.exp(-d["opacity"]))) * 255, 0, 255).astype(np.uint8)
+    q = d["quats"] / np.linalg.norm(d["quats"], axis=1,
+                                    keepdims=True).clip(1e-8)
+    buf[:, 28:32] = np.clip(q * 128 + 128, 0, 255).astype(np.uint8)
+    with open(path, "wb") as f:
+        f.write(buf.tobytes())
+
+
+def load_splat(path: str, *, device="cuda") -> GaussianParams:
+    raw = np.fromfile(path, np.uint8)
+    n = raw.size // 32
+    buf = raw[: n * 32].reshape(n, 32)
+    f32 = buf.view("<f4").reshape(n, 8)
+    means = f32[:, 0:3].copy()
+    scales = np.log(np.maximum(f32[:, 3:6], 1e-10))
+    sh0 = (buf[:, 24:27].astype(np.float32) / 255.0 - 0.5) / SH_C0
+    a = np.clip(buf[:, 27].astype(np.float32) / 255.0, 1e-4, 1 - 1e-4)
+    opacity = np.log(a) - np.log1p(-a)
+    quats = (buf[:, 28:32].astype(np.float32) - 128.0) / 128.0
+    return GaussianParams.create(
+        means, scales=scales, quats=quats, opacity=opacity, sh0=sh0,
+        sh_degree=0, device=device)
+
+
+def save_point_cloud_ply(path: str, points: np.ndarray,
+                         colors: np.ndarray | None = None) -> None:
+    """Plain xyz + rgb point cloud PLY (the SfM sparse-cloud export)."""
+    n = points.shape[0]
+    if colors is None:
+        colors = np.full((n, 3), 0.5, np.float32)
+    rgb = np.clip(colors * 255, 0, 255).astype(np.uint8)
+    header = (
+        "ply\nformat binary_little_endian 1.0\n"
+        f"element vertex {n}\n"
+        "property float x\nproperty float y\nproperty float z\n"
+        "property uchar red\nproperty uchar green\nproperty uchar blue\n"
+        "end_header\n")
+    rec = np.zeros(n, dtype=[("xyz", "<f4", 3), ("rgb", "u1", 3)])
+    rec["xyz"] = points.astype(np.float32)
+    rec["rgb"] = rgb
+    with open(path, "wb") as f:
+        f.write(header.encode())
+        f.write(rec.tobytes())

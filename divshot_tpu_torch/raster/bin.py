@@ -94,7 +94,10 @@ def prep(means2d, depths, radii, radii_xy, rad2, width: int, height: int,
     ry = radii_xy[:, 1] if radii_xy is not None else radii
 
     def tile_coord(x, hi, fn):
-        return torch.clamp(fn(x / tile_size), 0, hi).to(torch.int32)
+        # NaN -> 0 before the cast, as XLA converts it (the CPU's cast of
+        # NaN to int32 gives INT_MIN)
+        return torch.clamp(torch.nan_to_num(fn(x / tile_size), nan=0.0), 0,
+                           hi).to(torch.int32)
 
     tmin_x = tile_coord(u - rx, tw, torch.floor)
     tmax_x = tile_coord(u + rx, tw, torch.ceil)

@@ -1,0 +1,135 @@
+"""Checkpoint and resume (counterpart of
+``divshot_tpu/train/checkpoint.py``).
+
+``iteration_N/`` under the model path holds ``state.pt`` and a
+``point_cloud.ply`` of the params beside it, as in JAX. ``state.pt`` is
+one ``torch.save`` of plain tensors, ints and strings, read back with
+``weights_only=True``: the params, the Adam moments and step, the
+densification statistics, the strategies' ``torch.Generator`` state and,
+when given, the trainer's view sampler (a numpy ``Generator``, whose
+``bit_generator.state`` is a dict of ints) and its instance capacity. So a
+resumed run takes the same views and draws as an unbroken one (JAX's
+view sampler restarts from the seed).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+
+import numpy as np
+import torch
+
+from divshot_tpu_torch.gsio import ply as P
+from divshot_tpu_torch.train import strategy as S
+from divshot_tpu_torch.train.optim import PARAM_FIELDS, AdamState
+from divshot_tpu_torch.train.trainer import TrainState
+
+_PARAM_TENSORS = PARAM_FIELDS + ("alive",)
+_DSTATE = tuple(f.name for f in dataclasses.fields(S.DensifyState))
+
+
+def checkpoint_dir(model_path: str, step: int) -> str:
+    return os.path.join(os.path.abspath(model_path), f"iteration_{step}")
+
+
+def state_dict(state: TrainState, sampler: np.random.Generator | None = None,
+               instance_capacity: int | None = None) -> dict:
+    """The train state as plain tensors (on the host), ints and strings."""
+    def host(t):
+        return t.detach().cpu().clone()
+
+    out = {
+        "params": {f: host(getattr(state.params, f))
+                   for f in _PARAM_TENSORS},
+        "mu": {f: host(t) for f, t in state.opt.mu.items()},
+        "nu": {f: host(t) for f, t in state.opt.nu.items()},
+        "step": int(state.opt.step),
+        "dstate": {f: host(getattr(state.dstate, f)) for f in _DSTATE},
+        "gen": state.gen.get_state(),
+    }
+    if sampler is not None:
+        out["sampler"] = sampler.bit_generator.state
+    if instance_capacity is not None:
+        out["instance_capacity"] = int(instance_capacity)
+    return out
+
+
+def save_checkpoint(model_path: str, state: TrainState, *, step: int,
+                    export_ply: bool = True,
+                    sampler: np.random.Generator | None = None,
+                    instance_capacity: int | None = None) -> str:
+    """Write ``iteration_{step}/state.pt`` (and its ``point_cloud.ply``)
+    -> the directory."""
+    path = checkpoint_dir(model_path, step)
+    os.makedirs(path, exist_ok=True)
+    torch.save(state_dict(state, sampler, instance_capacity),
+               os.path.join(path, "state.pt"))
+    if export_ply:
+        P.save_ply(os.path.join(path, "point_cloud.ply"), state.params)
+    return path
+
+
+def latest_step(model_path: str) -> int | None:
+    if not os.path.isdir(model_path):
+        return None
+    steps = [int(d[10:]) for d in os.listdir(model_path)
+             if d.startswith("iteration_") and d[10:].isdigit()]
+    return max(steps) if steps else None
+
+
+def load_state_dict(model_path: str, step: int) -> dict:
+    """``iteration_{step}/state.pt`` as saved, its tensors on the host."""
+    return torch.load(os.path.join(checkpoint_dir(model_path, step),
+                                   "state.pt"),
+                      map_location="cpu", weights_only=True)
+
+
+def load_checkpoint(model_path: str, step: int, template: TrainState,
+                    sampler: np.random.Generator | None = None
+                    ) -> TrainState:
+    """-> the saved state on ``template``'s device (its generator a new
+    one in the saved state). A ``sampler`` given is set to the saved view
+    sampler's state."""
+    return _from_state_dict(load_state_dict(model_path, step), template,
+                            sampler)
+
+
+def _from_state_dict(d: dict, template: TrainState,
+                     sampler: np.random.Generator | None) -> TrainState:
+    dev = template.params.device
+
+    def dev_(t):
+        return t.to(dev)
+
+    params = dataclasses.replace(
+        template.params, **{f: dev_(d["params"][f]) for f in _PARAM_TENSORS})
+    opt = AdamState(mu={f: dev_(t) for f, t in d["mu"].items()},
+                    nu={f: dev_(t) for f, t in d["nu"].items()},
+                    step=int(d["step"]))
+    dstate = S.DensifyState(**{f: dev_(d["dstate"][f]) for f in _DSTATE})
+    gen = torch.Generator(device=dev)
+    gen.set_state(d["gen"])
+    if sampler is not None and "sampler" in d:
+        sampler.bit_generator.state = d["sampler"]
+    return TrainState(params=params, opt=opt, dstate=dstate, gen=gen)
+
+
+def save_trainer(model_path: str, trainer, *, step: int,
+                 export_ply: bool = True) -> str:
+    """``save_checkpoint`` of a ``Trainer``'s state with its view sampler
+    and instance capacity."""
+    return save_checkpoint(model_path, trainer.state, step=step,
+                           export_ply=export_ply, sampler=trainer._np_rng,
+                           instance_capacity=trainer.instance_capacity)
+
+
+def resume_trainer(model_path: str, trainer, step: int) -> None:
+    """Load ``iteration_{step}`` into a ``Trainer``: its state, its view
+    sampler and, where saved, its instance capacity."""
+    d = load_state_dict(model_path, step)
+    trainer.state = _from_state_dict(d, trainer.state, trainer._np_rng)
+    icap = d.get("instance_capacity")
+    if icap is not None and icap != trainer.instance_capacity:
+        trainer._render_kwargs["instance_capacity"] = icap
+        trainer._build_steps()

@@ -1,8 +1,8 @@
 """The port stands alone: with JAX, flax, PIL and ``divshot_tpu`` blocked,
 every module of ``divshot_tpu_torch`` imports and ``chip_smoke.py``'s
-kernel (with the backward kernels' unit split), viewer-path, training-path
-and 2DGS training-path phases run on the CPU at a tiny scale, with a
-``kernels`` record for every kernel. Also checks on
+kernel (with the backward kernels' unit split), viewer-path, training-path,
+2DGS training-path and dataset-path phases run on the CPU at a tiny scale,
+with a ``kernels`` record for every kernel. Also checks on
 the port's files: no JAX or ``divshot_tpu`` import outside docstrings, no
 file over 200 KB, and the kernel build directory ignored by git."""
 
@@ -36,6 +36,7 @@ with contextlib.redirect_stdout(buf):
     records = chip_smoke.phase_main_path(dev, chip_smoke.TINY)
     train = chip_smoke.phase_training(dev, chip_smoke.TINY)
     train2d = chip_smoke.phase_training_2dgs(dev, chip_smoke.TINY)
+    data = chip_smoke.phase_dataset(dev, chip_smoke.TINY)
 out = buf.getvalue()
 assert '"ok"' not in out, out
 assert all(v == 0.0 for v in checks.values()), checks
@@ -64,7 +65,12 @@ for r, (name, line) in zip(train2d[1:3], (("forward", 126), ("backward",
 assert all(r["nch"] == 5 for r in train2d if r["name"] == "surfel_backward")
 assert "it_per_s" in train2d[4] and "(b) train2d bench" in out
 assert "surfel nch 3" in out and "surfel nch 5" in out
-for r in records + train + train2d:
+assert [(r["scene"], r["name"]) for r in data] == [
+    ("tpu_bricks_data_32", k) for k in ("expand", "forward", "backward")]
+assert "resumed from iteration_8" in out
+assert "checkpoint bitwise equal to the state saved, PLY render bitwise" in out
+assert all(r["it_per_s"] > 0 and r["eval_views_per_s"] > 0 for r in data)
+for r in records + train + train2d + data:
     assert keys <= set(r), r
     assert r["route"] == "cuda" and r["library_ms"] is None
     assert r["max_abs_err"] == 0.0 and r["bound_ms"] > 0

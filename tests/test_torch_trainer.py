@@ -153,8 +153,8 @@ def test_unported_options_raise():
 
 
 @pytest.mark.parametrize("flag", [
-    ["--source_path", "scene"], ["--model_path", "out"],
-    ["--eval_every", "100"], ["--load_itr", "5"], ["--export_mesh", "1"],
+    ["--mesh_resolution", "128"], ["--progressive_train", "1"],
+    ["--pack_level", "1"], ["--debug_nan", "1"], ["--export_mesh", "1"],
     ["--model_type", "2"], ["--enable_bg", "1"], ["--use_mask", "1"]])
 def test_train_app_unported_flags_raise(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -162,7 +162,7 @@ def test_train_app_unported_flags_raise(flag):
 
 
 @pytest.mark.parametrize("exact", ["1", "0"])
-def test_train_app_demo_2dgs(exact, monkeypatch, capsys):
+def test_train_app_demo_2dgs(exact, monkeypatch, capsys, tmp_path):
     """``--demo --model_type 1`` trains on the CPU, on a demo scene cut to
     a few hundred splats at 48 px: the exact route through the surfel
     kernels' plain versions, ``--surfel_exact 0`` the flattened route
@@ -186,12 +186,13 @@ def test_train_app_demo_2dgs(exact, monkeypatch, capsys):
         "3dgs", R.rasterize_backward_plain))
     tr = train_app.run(["--demo", "--device", "cpu", "--model_type", "1",
                         "--surfel_exact", exact, "--iterations", "3",
-                        "--cap_max", "1024"])
+                        "--cap_max", "1024", "--model_path", str(tmp_path)])
     assert tr is not None and tr.state.step == 3
     assert tr.cfg.model_type == 1 and tr.cfg.surfel_exact == (exact == "1")
     assert calls == ({"surfel": 3, "3dgs": 0} if exact == "1"
                      else {"surfel": 0, "3dgs": 3})
-    last = capsys.readouterr().out.strip().splitlines()[-1]
+    last = [ln for ln in capsys.readouterr().out.splitlines()
+            if ln.startswith("[")][-1]
     assert last.startswith("[3/3]")
     assert np.isfinite(float(last.split("loss=")[1].split()[0]))
 

@@ -168,8 +168,9 @@ def cell_frame(cs, cell: str, device, scale):
         argv = ["--demo", "--iterations", str(scale.demo_iters), "--device",
                 device.type] + (["--model_type", "1"] if cell == "demo2d"
                                 else [])
-        with contextlib.redirect_stdout(io.StringIO()):
-            tr = cs.train_app.run(argv)
+        with tempfile.TemporaryDirectory() as out, \
+                contextlib.redirect_stdout(io.StringIO()):
+            tr = cs.train_app.run(argv + ["--model_path", out])
         route = cs.SURFEL if cell == "demo2d" else cs.GAUSS
         fr = cs.make_frame(tr.state.params, tr.dataset.cameras[0],
                            tr.instance_capacity, route=route)
