@@ -7,8 +7,9 @@ NVIDIA card.
 Phases, each a function of ``(device, scale)``:
 
 1. card identity (fails without a CUDA device);
-2. build the kernel library from ``divshot_tpu_torch/csrc`` (one ``nvcc``)
-   and print each kernel's registers, shared memory and spills;
+2. build the kernel library from ``divshot_tpu_torch/csrc`` (one ``nvcc``
+   a source, all started together, then one link) and print each
+   kernel's registers, shared memory and spills;
 3. each kernel against its plain PyTorch version at a bounded size, with
    NaN instances in the inputs, and the backward at nch 3 and 7 with the
    AbsGS rows on and off; each forward and backward kernel on a synthetic
@@ -64,7 +65,27 @@ Phases, each a function of ``(device, scale)``:
    (bitwise), the eval curve kept up to the resume step, the final PLY
    rendered against the final params (bitwise) and the eval PSNR rising;
    it counts the launches of the resumed run and holds the three kernels
-   against their plain versions on its trained state.
+   against their plain versions on its trained state;
+8. the trainer's options: (a) phase 5(b)'s train cell, warm-up then 10
+   steps timed with CUDA events, with batches of 4 views (4 launches of
+   each kernel a step, views/s), the envmap with masks made at run time
+   (the left half out), 1/4, 1/2 and full resolution (200x200, 400x400,
+   800x800, partial edge tiles at 200), bf16 ``shN`` (``pack_level=1``),
+   and the views streamed from pinned host memory through the ``Trainer``
+   (each step's ground truth on the card bitwise the device-resident one,
+   in the same view order; the copy ms of one view); (b) the train2d cell
+   as exact 2DGS with batches of 2, the envmap and masks; (c) ``apps.train
+   --source_path`` on phase 7's scene with ``--use_mask 1`` (masks from
+   the PNGs' alpha) ``--enable_bg 1 --progressive_train 1
+   --resolution_schedule 40 --pack_level 1``, 60 of 150 steps with a
+   checkpoint mid-way, then resumed to the end (the checkpoint bitwise,
+   the envmap and bf16 ``shN`` included, the resumed scale, the eval PSNR
+   rising, the PLY float32 and equal to the bf16 ``shN``); (d) ``--debug_nan
+   1``: a clean run finishes, and a NaN written into one mean raises
+   ``FloatingPointError`` at the projection stage. Each of (a)-(c) counts
+   its launches and holds its kernels against their plain versions at its
+   own shapes, with the cotangent of its own loss (the envmap composited,
+   the mask applied, a batch's 1/B).
 
 Both compositing routes, 3DGS and surfels, go through one harness
 (``Route``, ``Frame``, ``kernel_records``, ``stage_times``). It prints
@@ -99,10 +120,13 @@ from divshot_tpu_torch.apps.render import orbit_for_model, render_orbit
 from divshot_tpu_torch.core.config import DensifyStrategy, TrainConfig
 from divshot_tpu_torch.gsio.datasets import load_dataset
 from divshot_tpu_torch.gsio.io import load_model
-from divshot_tpu_torch.gsio.ply import load_ply
+from divshot_tpu_torch.gsio.loader import HostImageStore
+from divshot_tpu_torch.gsio.ply import load_ply, read_ply_arrays
 from divshot_tpu_torch.gsio.procedural import generate_dataset
 from divshot_tpu_torch.gsio.synthetic import (orbit_cameras, random_scene,
                                               render_gt_images)
+from divshot_tpu_torch.models.background import (init_envmap,
+                                                 render_background)
 from divshot_tpu_torch.raster import bin as B
 from divshot_tpu_torch.raster import raster as R
 from divshot_tpu_torch.raster import surfel_raster as SR
@@ -118,7 +142,8 @@ from divshot_tpu_torch.train.trainer import (Dataset, Trainer, TrainState,
                                              geometry_loss,
                                              hypers_from_config,
                                              make_train_step,
-                                             render_kwargs_from_config)
+                                             render_kwargs_from_config,
+                                             scaled_camera)
 
 REPO = Path(__file__).resolve().parent
 MODEL = REPO / "runs" / "tpu_bricks_mcmc" / "point_cloud.ply"
@@ -296,14 +321,22 @@ class Scale:
     data_iters: int       # eval_every, checkpoint_every and
     data_first: int       # reset_alpha_every
     data_every: tuple
+    opt_iters: int        # phase 8: timed steps of each option, steps of
+    opt2d_iters: int      # the 2DGS options run, the options app run's
+    opt_app: tuple        # (iterations, first run's steps,
+    nan_iters: int        # resolution_schedule, eval_every,
+    #                       checkpoint_every, reset_alpha_every), steps of
+    #                       the debug_nan runs
 
 
 FULL = Scale(1920, 1080, 4, 1, 1_000_000, 1 << 24, 50_000, 512, 10,
              150, 50_000, 100_000, 1 << 17, 800, 4, 30, 20, 60,
-             800, (24, 8), 262_144, 500, 300, (100, 200, 100))
+             800, (24, 8), 262_144, 300, 200, (100, 100, 50),
+             20, 4, (150, 60, 40, 50, 30, 20), 5)
 TINY = Scale(64, 48, 1, 512, 1_500, 1 << 16, 400, 64, 1,
              3, 300, 500, 1 << 10, 64, 2, 2, 0, 3,
-             32, (3, 2), 1024, 12, 8, (4, 4, 3))
+             32, (3, 2), 1024, 12, 8, (4, 4, 3),
+             2, 2, (12, 6, 3, 4, 3, 2), 3)
 
 
 def log(msg: str) -> None:
@@ -1721,6 +1754,31 @@ def phase_training_2dgs(device: torch.device, scale: Scale) -> list[dict]:
 # --------------------------------------------------------------------------
 # the dataset path: a scene on disk to checkpoints, an eval curve and a PLY
 
+_BRICKS: dict = {}
+
+
+def bricks(device: torch.device, scale: Scale) -> tuple[str, float]:
+    """``tpu_bricks`` traced on ``device`` at ``data_res`` with
+    ``data_views`` into a temporary directory, once for phases 7 and 8 ->
+    (its directory, the seconds it took)."""
+    key = (device.type, scale.data_res, scale.data_views)
+    if key not in _BRICKS:
+        tmp = tempfile.TemporaryDirectory()
+        data = f"{tmp.name}/tpu_bricks"
+        t0 = time.perf_counter()
+        generate_dataset(data, n_train=scale.data_views[0],
+                         n_test=scale.data_views[1], width=scale.data_res,
+                         height=scale.data_res, device=device)
+        _BRICKS[key] = (tmp, data, time.perf_counter() - t0)
+    return _BRICKS[key][1:]
+
+
+def drop_bricks() -> None:
+    """Remove the scenes ``bricks`` made."""
+    for tmp, _, _ in _BRICKS.values():
+        tmp.cleanup()
+    _BRICKS.clear()
+
 
 def _app_run(argv: list[str], device: torch.device, what: str,
              steps: int, max_steps: int | None = None):
@@ -1745,9 +1803,14 @@ def _same_state(a: dict, b: dict, what: str) -> None:
     """Two ``checkpoint.state_dict``s bitwise equal."""
     for k in ("params", "mu", "nu", "dstate"):
         for f, t in a[k].items():
-            if not torch.equal(t, b[k][f]):
+            if t.dtype != b[k][f].dtype or not torch.equal(t, b[k][f]):
                 raise AssertionError(f"{what}: {k}.{f} differs")
-    for k in ("step", "sampler", "instance_capacity"):
+    for k, t in a.get("bg", {}).items():
+        if not torch.equal(t, b["bg"][k]):
+            raise AssertionError(f"{what}: bg.{k} differs")
+    if set(a.get("bg", {})) != set(b.get("bg", {})):
+        raise AssertionError(f"{what}: the envmap state differs")
+    for k in ("step", "sampler", "instance_capacity", "pending_views"):
         if a.get(k) != b.get(k):
             raise AssertionError(f"{what}: {k} differs")
     if not torch.equal(a["gen"], b["gen"]):
@@ -1768,12 +1831,9 @@ def phase_dataset(device: torch.device, scale: Scale) -> list[dict]:
     three kernels against their plain versions on the trained state."""
     res, (n_train, n_test) = scale.data_res, scale.data_views
     eval_every, ckpt_every, reset_every = scale.data_every
+    data, gen_s = bricks(device, scale)
     with tempfile.TemporaryDirectory() as tmp:
-        data, model = f"{tmp}/tpu_bricks", f"{tmp}/model"
-        t0 = time.perf_counter()
-        generate_dataset(data, n_train=n_train, n_test=n_test, width=res,
-                         height=res, device=device)
-        gen_s = time.perf_counter() - t0
+        model = f"{tmp}/model"
         t0 = time.perf_counter()
         train_ds, eval_ds = load_dataset(data, device=device,
                                          white_background=True)
@@ -1851,6 +1911,414 @@ def phase_dataset(device: torch.device, scale: Scale) -> list[dict]:
 
 
 # --------------------------------------------------------------------------
+# the trainer's options: batches, the envmap and masks, progressive
+# resolution, bf16 shN, streamed views, debug_nan
+
+
+def option_loss(cfg: TrainConfig, gt: torch.Tensor, cam, step: int,
+                env=None, mask=None, weight: float = 1.0):
+    """The train step's loss of one view with its options, as a function
+    of the frame's (rgb, alpha, planes): the envmap composited behind the
+    splats, the mask on the image and the (float) ground truth, the
+    geometry terms unmasked, times ``weight`` (1/B of a batch's mean)."""
+    hyp = hypers_from_config(cfg)
+    bg_px = None if env is None else render_background(env, cam)
+
+    def loss(rgb, alpha, planes):
+        img, g = rgb, gt
+        if bg_px is not None:
+            img = img + (1.0 - alpha)[..., None] * bg_px
+        if mask is not None:
+            img, g = img * mask[..., None], g * mask[..., None]
+        out = photometric_loss(img, g, hyp["ssim_weight"])
+        if planes is not None:
+            out = out + geometry_loss(cfg, planes, alpha, cam, step, hyp)
+        return weight * out
+    return loss
+
+
+def pooled(img: torch.Tensor, s: int) -> torch.Tensor:
+    """(h, w, C) float -> averaged over s x s blocks, as the step pools its
+    ground truth at 1/s resolution."""
+    if s == 1:
+        return img
+    h, w = img.shape[0] // s, img.shape[1] // s
+    return img[:h * s, :w * s].reshape(h, s, w, s, -1).mean((1, 3))
+
+
+def option_records(scene: str, cfg: TrainConfig, params, ds: Dataset,
+                   icap: int, launches: dict, steps: int, device, scale,
+                   route: Route = GAUSS, env=None, res_scale: int = 1,
+                   weight: float = 1.0) -> list[dict]:
+    """The kernels of a run with options against their plain versions on
+    view 0 at its shapes (1/``res_scale`` resolution), with the cotangent
+    of its own loss (envmap, mask, batch weight)."""
+    cam = ds.cameras[0] if res_scale == 1 else scaled_camera(
+        ds.cameras[0], res_scale)
+    img = ds.images[0]
+    img = torch.as_tensor(img, device=device)
+    gt = pooled(img.float() / 255.0, res_scale)
+    mask = None
+    if ds.masks is not None:
+        m = torch.as_tensor(ds.masks[0], device=device)
+        mask = pooled((m.float() / 255.0)[..., None], res_scale)[..., 0]
+    fr = make_frame(params, cam, icap, route=route)
+    cot = loss_cotangent(fr, option_loss(cfg, gt, cam, steps, env, mask,
+                                         weight))
+    bkw = {} if route is SURFEL else {"with_absgrad": False}
+    return kernel_records(scene, fr, device, scale, launches, cot=cot,
+                          per_step=steps, **bkw)
+
+
+def timed_steps(step, warm: int, iters: int, device: torch.device):
+    """``step(i)`` for ``warm`` steps, then ``iters`` steps timed with CUDA
+    events (the host clock on the CPU) -> (their losses, seconds)."""
+    for i in range(warm):
+        step(i)
+    losses = []
+    sync(device)
+    t0 = time.perf_counter()
+    if device.type == "cuda":
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+    for i in range(warm, warm + iters):
+        losses.append(step(i)["loss"])
+    if device.type == "cuda":
+        end.record()
+        end.synchronize()
+        secs = start.elapsed_time(end) / 1e3
+    else:
+        secs = time.perf_counter() - t0
+    losses = torch.stack(losses).cpu().numpy()
+    if not np.isfinite(losses).all():
+        raise AssertionError("non-finite loss")
+    return losses, secs
+
+
+def _check_launches(launches: dict, kernels, per_step: int, steps: int,
+                    what: str, device: torch.device) -> None:
+    """On a card each kernel of the path ran ``per_step`` times a step."""
+    if device.type == "cuda" and any(launches[k] != per_step * steps
+                                     for k in kernels):
+        raise AssertionError(f"{what}: launches {launches}, expected "
+                             f"{per_step} a step over {steps} steps")
+
+
+def _masks(n: int, h: int, w: int) -> np.ndarray:
+    """Masks made at run time: the left half of every view left out."""
+    m = np.full((n, h, w), 255, np.uint8)
+    m[:, :, : w // 2] = 0
+    return m
+
+
+def _with_bg(cfg: TrainConfig, params, seed: int = 0) -> TrainState:
+    env = init_envmap(init_color=(1, 1, 1) if cfg.white_background
+                      else (0, 0, 0), device=params.device)
+    return TrainState.init(params, seed, bg={
+        "params": env, "mu": torch.zeros_like(env),
+        "nu": torch.zeros_like(env)})
+
+
+def options_cells(device: torch.device, scale: Scale) -> list[dict]:
+    """(a) Phase 5(b)'s train cell with each option: warm-up, then
+    ``opt_iters`` steps timed with CUDA events, its launches counted and
+    its kernels held against their plain versions at its own shapes."""
+    cfg, ds, params = _bench_setup(device, scale)
+    res, V = scale.train_res, ds.num_views
+    probe = make_train_step(cfg, ds, {"instance_capacity": 1 << 19})
+    _, m = probe(TrainState.init(params, 0), 0)
+    icap = auto_icap(int(m["num_instances"]))
+    rk = {"instance_capacity": icap}
+    host = ds.images.cpu().numpy()
+    ds_mask = Dataset.from_views(ds.cameras, host, masks=_masks(V, res, res))
+    packed = dataclasses.replace(params, shN=params.shN.to(torch.bfloat16))
+    warm = min(4, V)
+    steps = warm + scale.opt_iters
+    records, rates = [], {}
+
+    # (label, config, dataset, res_scale, views of step i, first state,
+    #  launches a step); the plain step first and again last, for the
+    #  spread of the host's step time within the phase
+    runs = [
+        ("x1", cfg, ds, 1, lambda i: i % V, TrainState.init(params, 0), 1),
+        ("batch4", cfg, ds, 1, lambda i: [(i + k) % V for k in range(4)],
+         TrainState.init(params, 0), 4),
+        ("bg_mask", cfg.replace(enable_bg=True), ds_mask, 1,
+         lambda i: i % V, _with_bg(cfg, params), 1),
+        ("x4", cfg, ds, 4, lambda i: i % V, TrainState.init(params, 0), 1),
+        ("x2", cfg, ds, 2, lambda i: i % V, TrainState.init(params, 0), 1),
+        ("pack1", cfg.replace(pack_level=1), ds, 1, lambda i: i % V,
+         TrainState.init(packed, 0), 1),
+        ("x1_again", cfg, ds, 1, lambda i: i % V, TrainState.init(params, 0),
+         1),
+    ]
+    for label, rcfg, rds, rs, views, state0, per_step in runs:
+        step_fn = make_train_step(rcfg, rds, rk, res_scale=rs)
+        box = [state0]
+
+        def step(i):
+            box[0], out = step_fn(box[0], views(i))
+            return out
+
+        (losses, secs), launches = count_launches(
+            lambda: timed_steps(step, warm, scale.opt_iters, device), device,
+            steps, f"(a) {label}")
+        _check_launches(launches, TRAIN_KERNELS, per_step, steps, label,
+                        device)
+        st = box[0]
+        if label == "pack1" and st.params.shN.dtype != torch.bfloat16:
+            raise AssertionError("pack1: shN left bf16")
+        its = scale.opt_iters / secs
+        rates[label] = its
+        w = res // rs
+        log(f"  (a) {label}: {scale.opt_iters} timed steps at {w}x{w} in "
+            f"{secs:.4f} s = {its:.3f} it/s ({per_step * its:.3f} views/s), "
+            f"loss first {losses[0]:.6f} last {losses[-1]:.6f}")
+        if label == "x1_again":
+            continue
+        recs = option_records(
+            f"opt_{label}_{w}", rcfg, st.params, rds, icap, launches, steps,
+            device, scale, env=None if st.bg is None else st.bg["params"],
+            res_scale=rs, weight=1.0 / per_step)
+        for r in recs:
+            r.update(it_per_s=its, views_per_s=per_step * its, res=w,
+                     launches_per_step=launches[r["name"]] / steps)
+        records += recs
+
+    # streamed: the Trainer on host images, each step's ground truth on the
+    # card held bitwise against the device-resident image of its view
+    sds = Dataset.from_views(ds.cameras, host, stream=True)
+    tr = Trainer(cfg, sds, params, render_kwargs=rk)
+    full_step, seen = tr._steps[1], []
+
+    def checked(state, view, gt, mask, hypers=None):
+        seen.append((view, (gt == ds.images[view]).all()))
+        return full_step(state, view, gt, mask, hypers=hypers)
+
+    tr._steps[1] = checked
+    (losses, secs), launches = count_launches(
+        lambda: timed_steps(lambda i: tr.step_once(), warm, scale.opt_iters,
+                            device), device, steps, "(a) stream")
+    tr.close()
+    _check_launches(launches, TRAIN_KERNELS, 1, steps, "stream", device)
+    order = np.random.default_rng(cfg.seed).integers(V, size=steps)
+    if [v for v, _ in seen] != [int(v) for v in order]:
+        raise AssertionError("stream: views out of the device-resident "
+                             "order")
+    if not all(bool(ok) for _, ok in seen):
+        raise AssertionError("stream: a streamed ground truth differs from "
+                             "the device-resident one")
+    its = scale.opt_iters / secs
+    rates["stream"] = its
+    store = HostImageStore(images=host, pin=device.type == "cuda")
+    copy_ms = time_ms(lambda: store.get(0).to(device, non_blocking=True),
+                      device, scale.timing_iters * 2)
+    mb = host[0].nbytes / 1e6
+    log(f"  (a) stream: {scale.opt_iters} timed steps in {secs:.4f} s = "
+        f"{its:.3f} it/s; every step's ground truth bitwise the "
+        f"device-resident one, in the same view order; the pinned copy of "
+        f"one {mb:.2f} MB view {copy_ms:.4f} ms")
+    recs = option_records(f"opt_stream_{res}", cfg, tr.state.params, ds,
+                          icap, launches, steps, device, scale)
+    for r in recs:
+        r.update(it_per_s=its, copy_ms_per_view=copy_ms,
+                 launches_per_step=launches[r["name"]] / steps)
+    records += recs
+    log("  (a) it/s: " + ", ".join(f"{k} {v:.3f}" for k, v in rates.items())
+        + f"; views/s at batch 4 {4 * rates['batch4']:.3f} against "
+        f"{rates['x1']:.3f} / {rates['x1_again']:.3f} at batch 1 (first / "
+        f"last)")
+    return records
+
+
+def options_2dgs(device: torch.device, scale: Scale) -> list[dict]:
+    """(b) The train2d cell as exact 2DGS with batches of 2 views, the
+    envmap and masks: a few steps, the expand and surfel kernels' launches
+    (2 a step) and the kernels against their plain versions."""
+    cfg, ds, params = _bench_setup(device, scale, model_type=1)
+    cfg = cfg.replace(enable_bg=True)
+    res, V = scale.train_res, ds.num_views
+    ds = Dataset.from_views(ds.cameras, ds.images.cpu().numpy(),
+                            masks=_masks(V, res, res))
+    probe = make_train_step(cfg, ds, {"instance_capacity": 1 << 19})
+    _, m = probe(_with_bg(cfg, params), 0)
+    icap = auto_icap(int(m["num_instances"]))
+    step_fn = make_train_step(cfg, ds, {"instance_capacity": icap})
+    box = [_with_bg(cfg, params)]
+
+    def step(i):
+        box[0], out = step_fn(box[0], [i % V, (i + 1) % V])
+        return out
+
+    steps = 1 + scale.opt2d_iters
+    (losses, secs), launches = count_launches(
+        lambda: timed_steps(step, 1, scale.opt2d_iters, device), device,
+        steps, "(b) train2d batch 2, envmap, masks", kernels=SURFEL_KERNELS)
+    _check_launches(launches, SURFEL_KERNELS, 2, steps, "(b)", device)
+    its = scale.opt2d_iters / secs
+    log(f"  (b) train2d, exact 2DGS, batch 2, envmap and masks: "
+        f"{scale.opt2d_iters} timed steps in {secs:.4f} s = {its:.3f} it/s "
+        f"({2 * its:.3f} views/s), loss first {losses[0]:.6f} last "
+        f"{losses[-1]:.6f}")
+    recs = option_records(f"opt2d_b2_bg_mask_{res}", cfg, box[0].params, ds,
+                          icap, launches, steps, device, scale,
+                          route=SURFEL, env=box[0].bg["params"], weight=0.5)
+    for r in recs:
+        r.update(it_per_s=its, launches_per_step=launches[r["name"]] / steps)
+    return recs
+
+
+def masked_psnr(params, ds: Dataset, icap: int, device) -> float:
+    """Mean PSNR over ``ds``'s views of the pixels its masks keep whole
+    (255), rendered over white, as the eval renders."""
+    bg = torch.ones((3,), device=device)
+    out = []
+    with torch.no_grad():
+        for v, cam in enumerate(ds.cameras):
+            img = render(params, cam, background=bg,
+                         instance_capacity=icap).image
+            keep = ds.masks[v] == 255
+            mse = ((img - ds.images[v].float() / 255.0) ** 2)[keep].mean()
+            out.append(float(-10.0 * torch.log10(mse)))
+    return float(np.mean(out))
+
+
+def options_app(device: torch.device, scale: Scale) -> list[dict]:
+    """(c) ``apps.train --source_path`` on phase 7's ``tpu_bricks`` with
+    masks from the PNGs' alpha, the envmap, progressive resolution and
+    bf16 shN: a first run with a checkpoint mid-way, then ``--load_itr -2``
+    to the end. Checks: the files, the checkpoint read back bitwise (the
+    envmap, its moments, bf16 shN and moments), the resumed run's scale,
+    the eval PSNR finite, the PSNR of the eval views' masked-in pixels
+    rising from the first run's end to the second's (the loss sees only
+    those: the full-frame eval also scores the background, which no step
+    trains), the PLY float32 and equal to the bf16 shN."""
+    data, _ = bricks(device, scale)
+    _, eval_ds = load_dataset(data, device=device, white_background=True,
+                              use_mask=True)
+    iters, first, sched, eval_every, ckpt_every, reset_every = scale.opt_app
+    with tempfile.TemporaryDirectory() as tmp:
+        model = f"{tmp}/model"
+        argv = ["--source_path", data, "--model_path", model, "--device",
+                device.type, "--white_background", "1", "--cap_max",
+                str(scale.data_capacity), "--iterations", str(iters),
+                "--eval_every", str(eval_every), "--checkpoint_every",
+                str(ckpt_every), "--reset_alpha_every", str(reset_every),
+                "--use_mask", "1", "--enable_bg", "1", "--progressive_train",
+                "1", "--resolution_schedule", str(sched), "--pack_level", "1"]
+        tr, _, out1 = _app_run(argv, device, "(c) apps.train with the "
+                               "options", first, max_steps=first)
+        masks = tr.dataset.masks
+        if masks is None or not bool((masks < 255).any()):
+            raise AssertionError("(c) the masks did not come from alpha")
+        for name in ("eval_curve.json", "point_cloud.ply",
+                     f"iteration_{ckpt_every}/state.pt",
+                     f"iteration_{first}/state.pt"):
+            if not Path(model, name).exists():
+                raise AssertionError(f"(c) {name} was not written")
+        saved = CK.load_state_dict(model, first)
+        if saved["params"]["shN"].dtype != torch.bfloat16 or \
+                saved["mu"]["shN"].dtype != torch.bfloat16 or "bg" not in saved:
+            raise AssertionError("(c) the checkpoint lost bf16 shN or the "
+                                 "envmap")
+        _same_state(saved, CK.state_dict(tr.state, tr._np_rng,
+                                         tr.instance_capacity),
+                    f"(c) iteration_{first}")
+        kept = [masked_psnr(tr.state.params, eval_ds, tr.instance_capacity,
+                            device)]
+        tr, launches, out2 = _app_run(argv + ["--load_itr", "-2"], device,
+                                      "(c) resumed with --load_itr -2",
+                                      iters - first)
+        if f"resumed from iteration_{first}" not in out2:
+            raise AssertionError("(c) did not resume from the checkpoint")
+        scales = [tr.res_scale(s) for s in (first, iters - 1)]
+        log(f"  (c) scales: step {first} x{scales[0]}, step {iters - 1} "
+            f"x{scales[1]} (schedule {sched})")
+        if scales != [4 if first < sched else 2 if first < 2 * sched else 1,
+                      1]:
+            raise AssertionError(f"(c) resumed at scales {scales}")
+        curve = json.loads(Path(model, "eval_curve.json").read_text())
+        psnrs = [e["psnr"] for e in curve]
+        kept.append(masked_psnr(tr.state.params, eval_ds,
+                                tr.instance_capacity, device))
+        if not (len(psnrs) >= 2 and all(math.isfinite(x) for x in psnrs)
+                and all(math.isfinite(x) for x in kept)
+                and kept[1] > kept[0]):
+            raise AssertionError(f"(c) eval PSNR {psnrs}, of the masked-in "
+                                 f"pixels {kept}")
+        arrays, _ = read_ply_arrays(f"{model}/point_cloud.ply")
+        p = tr.state.params
+        shn = p.shN[p.alive].float().cpu().numpy()
+        if arrays["shN"].dtype != np.float32 or not np.array_equal(
+                arrays["shN"], shn):
+            raise AssertionError("(c) the PLY is not the float32 of bf16 "
+                                 "shN")
+    its = [float(ln.split("(")[1].split()[0]) for ln in
+           (out1 + out2).splitlines() if ln.startswith("trained ")]
+    log(f"  (c) eval PSNR: " + ", ".join(f"{e['step']}: {e['psnr']:.3f}"
+                                         for e in curve)
+        + f"; of the masked-in pixels {kept[0]:.3f} at step {first}, "
+        f"{kept[1]:.3f} at {iters}; "
+        f"{its[0]:.2f} / {its[1]:.2f} it/s (first run / resumed); "
+        f"checkpoint bitwise, PLY float32 equal to the bf16 shN")
+    res = tr.dataset.cameras[0].width
+    recs = option_records(f"opt_app_bricks_{res}", tr.cfg, p, tr.dataset,
+                          tr.instance_capacity, launches, iters - first,
+                          device, scale, env=tr.state.bg["params"])
+    for r in recs:
+        r.update(it_per_s=its[1], eval_psnr=psnrs[-1],
+                 masked_psnr=kept[1])
+    return recs
+
+
+def options_debug_nan(device: torch.device, scale: Scale) -> None:
+    """(d) ``--debug_nan 1`` on ``tpu_bricks``: a clean run finishes; a
+    NaN written into one mean after the first step raises
+    ``FloatingPointError`` naming the projection stage."""
+    data, _ = bricks(device, scale)
+    n = scale.nan_iters
+
+    def argv(model):
+        return ["--source_path", data, "--model_path", model, "--device",
+                device.type, "--white_background", "1", "--cap_max",
+                str(scale.data_capacity), "--iterations", str(n),
+                "--debug_nan", "1"]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tr, _, _ = _app_run(argv(f"{tmp}/clean"), device,
+                            "(d) --debug_nan 1, clean", n)
+        if tr.state.step != n:
+            raise AssertionError("(d) the clean run stopped early")
+
+        def poison(i, state, m):
+            if i == 0:
+                state.params.means[0, 0] = float("nan")
+
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                train_app.run(argv(f"{tmp}/nan"), callback=poison)
+        except FloatingPointError as e:
+            if "projection" not in str(e):
+                raise AssertionError(f"(d) raised at another stage: {e}")
+            log(f"  (d) a NaN mean after step 1 raised, as expected, in "
+                f"{time.perf_counter() - t0:.2f} s: FloatingPointError: {e}")
+        else:
+            raise AssertionError("(d) a NaN mean did not raise")
+
+
+def phase_options(device: torch.device, scale: Scale) -> list[dict]:
+    records = []
+    for label, fn in (("(a)", options_cells), ("(b)", options_2dgs),
+                      ("(c)", options_app), ("(d)", options_debug_nan)):
+        t0 = time.perf_counter()
+        records += fn(device, scale) or []
+        log(f"  {label} done in {time.perf_counter() - t0:.2f} s")
+    return records
+
+
+# --------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1872,6 +2340,8 @@ def main() -> int:
     records += run("5 training path", phase_training)
     records += run("6 2DGS training path", phase_training_2dgs)
     records += run("7 dataset path", phase_dataset)
+    records += run("8 the trainer's options", phase_options)
+    drop_bricks()
     log(f"all phases ok in {time.perf_counter() - t_all:.2f} s")
     print(json.dumps({"kernels": records}))
     print(ident["smi"] or f"{ident['kind']}, power limit not readable")

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-One ``nvcc`` call compiles every ``csrc/*.cu`` into one shared library with
-a plain C interface (``csrc/api.h``) under ``build/divshot_tpu_torch/`` at
-the repository root; ``ctypes`` loads it. The library's file name carries a
+One ``nvcc`` process a source, all started together, compiles every
+``csrc/*.cu`` to an object; one more links them into one shared library
+with a plain C interface (``csrc/api.h``) under ``build/divshot_tpu_torch/``
+at the repository root; ``ctypes`` loads it. The library's file name carries a
 hash of the sources and flags, so a changed source builds anew and an
 unchanged one is reused. The build happens at first use, never at import.
 
@@ -87,14 +88,32 @@ def build() -> tuple[Path, float]:
         return so, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+    objs = BUILD_DIR / f"{so.stem}.{os.getpid()}.obj"
+    objs.mkdir()
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
     t0 = time.perf_counter()
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in ([_nvcc(), *compile_flags, "-c", "-o",
+                          str(objs / f"{src.stem}.o"), str(src)]
+                         for src in sorted(CSRC.glob("*.cu")))]
+    report = []
+    for cmd, proc in procs:
+        _, err = proc.communicate()
+        report.append(err)
+        if proc.returncode != 0:
+            for _, other in procs:
+                other.kill()
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{err}")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *sorted(str(o) for o in objs.glob("*.o"))]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed ({res.returncode}): {' '.join(cmd)}"
                            f"\n{res.stderr}")
-    so.with_suffix(".ptxas.txt").write_text(res.stderr)
+    shutil.rmtree(objs)
+    so.with_suffix(".ptxas.txt").write_text("".join(report))
     os.replace(tmp, so)
     return so, time.perf_counter() - t0
 

@@ -19,9 +19,14 @@ is given.
 
 Ported: the static trainer, 3DGS and 2DGS (``--model_type 1``, exact
 surfels by default, ``--surfel_exact 0`` the flattened approximation),
-the geometry losses, and the ADC, ADC+ and MCMC strategies. The flags of
-what is not ported yet (mesh export and the options the trainer rejects)
-raise ``NotImplementedError`` naming ROADMAP.md.
+the geometry losses, the ADC, ADC+ and MCMC strategies, and the options
+``--enable_bg`` (the envmap background; eval keeps JAX's flat
+background), ``--use_mask`` (masks from a masks folder or the PNGs'
+alpha), ``--progressive_train`` with ``--resolution_schedule``,
+``--pack_level`` and ``--debug_nan`` (``FloatingPointError`` naming the
+stage that made a NaN). As in JAX there is no batch-size flag. The flags
+of what is not ported yet (mesh export, the dynamic models) raise
+``NotImplementedError`` naming ROADMAP.md.
 """
 
 from __future__ import annotations

@@ -8,9 +8,14 @@ Pillow's Lanczos, as in JAX. The arithmetic from uint8 pixels to the
 stored uint8 image (alpha compositing over a white or black background,
 greyscale repeated to three channels) is JAX's, float32 for float32.
 
+Masks (``use_mask``), as in JAX: a file of the image's stem in a
+``masks`` folder beside the images or beside their folder wins (PNG only,
+converted to greyscale and resized nearest to the image), then the PNG's
+alpha, then keep-all; stored uint8 ``m * 255``.
+
 Not ported yet, raising ``NotImplementedError`` naming ROADMAP.md: the
 external-pose readers (nerfstudio, opensfm, realitycapture, metashape;
-``gsio/readers.py``) and masks (``use_mask``).
+``gsio/readers.py``).
 """
 
 from __future__ import annotations
@@ -21,15 +26,16 @@ import os
 import numpy as np
 
 from divshot_tpu_torch.gsio import colmap as C
-from divshot_tpu_torch.gsio.png import read_png, resize_lanczos
+from divshot_tpu_torch.gsio.png import (read_png, resize_lanczos,
+                                        resize_nearest, to_grey)
 from divshot_tpu_torch.splat.camera import Camera
 from divshot_tpu_torch.train.trainer import Dataset, _unported
 
 
 def _load_image(path: str, max_w: int, max_h: int,
-                white_bg: bool = False) -> np.ndarray:
-    """-> (H, W, 3) float32 in [0, 1], RGBA composited over the
-    background."""
+                white_bg: bool = False):
+    """-> ((H, W, 3) float32 in [0, 1], RGBA composited over the
+    background; the alpha (H, W) float32, or None without one)."""
     img = read_png(path)
     h, w = img.shape[:2]
     scale = min(1.0, max_w / w, max_h / h)
@@ -38,24 +44,63 @@ def _load_image(path: str, max_w: int, max_h: int,
     arr = img.astype(np.float32) / 255.0
     if arr.ndim == 2:
         arr = np.repeat(arr[..., None], 3, -1)
+    alpha = None
     if arr.shape[-1] == 4:
         rgb, a = arr[..., :3], arr[..., 3:4]
+        alpha = a[..., 0]
         arr = rgb * a + (1.0 - a) * (1.0 if white_bg else 0.0)
-    return arr
+    return arr, alpha
 
 
-def _split_datasets(cameras, images, points, colors, eval_holdout: int):
+def _find_mask_path(img_path: str) -> str | None:
+    """``useMask``: a file with the image's stem and a common extension in
+    ``<img_dir>/masks/`` or ``<img_dir>/../masks/``."""
+    d = os.path.dirname(img_path)
+    stem = os.path.splitext(os.path.basename(img_path))[0]
+    for mdir in (os.path.join(d, "masks"),
+                 os.path.join(os.path.dirname(d), "masks")):
+        for ext in (".png", ".jpg", ".jpeg", ".JPG", ".PNG"):
+            p = os.path.join(mdir, stem + ext)
+            if os.path.exists(p):
+                return p
+    return None
+
+
+def _load_mask(img_path: str, alpha: np.ndarray | None,
+               shape: tuple) -> np.ndarray:
+    """Per-image mask (H, W) float32 in [0, 1]: the masks-folder file
+    wins, then the PNG's alpha, then keep-all."""
+    mp = _find_mask_path(img_path)
+    if mp is not None:
+        m = to_grey(read_png(mp))
+        if m.shape != tuple(shape[:2]):
+            m = resize_nearest(m, shape[1], shape[0])
+        return m.astype(np.float32) / 255.0
+    if alpha is not None:
+        return alpha.astype(np.float32)
+    return np.ones(shape[:2], np.float32)
+
+
+def _mask_u8(path: str, alpha, shape) -> np.ndarray:
+    return (_load_mask(path, alpha, shape) * 255).astype(np.uint8)
+
+
+def _split_datasets(cameras, images, masks, points, colors,
+                    eval_holdout: int, stream: bool = False):
     """Holdout split (every ``eval_holdout``-th view, from view 0, is
-    held out) -> (train, eval or None)."""
+    held out) -> (train, eval or None); ``masks`` may be empty."""
     images = np.stack(images)
+    marr = np.stack(masks) if masks else None
     train_idx = [i for i in range(len(cameras))
                  if not eval_holdout or i % eval_holdout != 0]
     eval_idx = [i for i in range(len(cameras))
                 if eval_holdout and i % eval_holdout == 0]
 
     def make(idx):
-        return Dataset.from_views([cameras[i] for i in idx], images[idx],
-                                  points=points, colors=colors)
+        return Dataset.from_views(
+            [cameras[i] for i in idx], images[idx], points=points,
+            colors=colors, stream=stream,
+            masks=None if marr is None else marr[idx])
 
     return make(train_idx), (make(eval_idx) if eval_idx else None)
 
@@ -67,13 +112,11 @@ def load_colmap_dataset(
 ) -> tuple[Dataset, Dataset | None]:
     """-> (train_ds, eval_ds or None); the intrinsics are rescaled to the
     loaded image size."""
-    if use_mask:
-        raise _unported("use_mask (training with masks)")
     sparse = C.find_sparse_dir(source)
     cams, imgs, pts, cols = C.load_sparse_model(sparse)
     img_root = os.path.join(source, images_dir)
 
-    cameras, images = [], []
+    cameras, images, masks = [], [], []
     items = sorted(imgs.items(), key=lambda kv: kv[1].name)
     if max_images:
         items = items[:max_images]
@@ -83,7 +126,7 @@ def load_colmap_dataset(
         path = os.path.join(img_root, im.name)
         if not os.path.exists(path):
             continue
-        arr = _load_image(path, max_width, max_height)
+        arr, alpha = _load_image(path, max_width, max_height)
         sx = arr.shape[1] / cc.width
         sy = arr.shape[0] / cc.height
         R = C.qvec_to_rotmat(im.qvec)
@@ -91,10 +134,12 @@ def load_colmap_dataset(
             R, im.tvec, fx * sx, fy * sy, cx * sx, cy * sy,
             arr.shape[1], arr.shape[0], device=device))
         images.append((arr * 255).astype(np.uint8))
+        if use_mask:
+            masks.append(_mask_u8(path, alpha, arr.shape))
 
     if not cameras:
         raise FileNotFoundError(f"no images found under {img_root}")
-    return _split_datasets(cameras, images, pts, cols, eval_holdout)
+    return _split_datasets(cameras, images, masks, pts, cols, eval_holdout)
 
 
 def load_blender_dataset(
@@ -105,23 +150,21 @@ def load_blender_dataset(
     """NeRF-synthetic ``transforms_{split}.json`` loader. Blender cameras
     are OpenGL-convention camera-to-world (looking down -Z), converted to
     the COLMAP-style +Z-forward world-to-camera."""
-    if use_mask:
-        raise _unported("use_mask (training with masks)")
     with open(os.path.join(source, f"transforms_{split}.json")) as f:
         meta = json.load(f)
     frames = meta["frames"]
     if max_images:
         frames = frames[:max_images]
 
-    cameras, images, times = [], [], []
+    cameras, images, masks, times = [], [], [], []
     for fr in frames:
         path = os.path.join(source, fr["file_path"])
         for ext in ("", ".png", ".jpg", ".JPG", ".jpeg"):
             if os.path.exists(path + ext):
                 path = path + ext
                 break
-        arr = _load_image(path, max_width, max_height,
-                          white_bg=white_background)
+        arr, alpha = _load_image(path, max_width, max_height,
+                                 white_bg=white_background)
         h, w = arr.shape[:2]
         if "camera_angle_x" in meta:
             fx = 0.5 * w / np.tan(0.5 * float(meta["camera_angle_x"]))
@@ -135,10 +178,13 @@ def load_blender_dataset(
             w2c[:3, :3], w2c[:3, 3], fx, fy, w / 2, h / 2, w, h,
             device=device))
         images.append((arr * 255).astype(np.uint8))
+        if use_mask:
+            masks.append(_mask_u8(path, alpha, arr.shape))
         if "time" in fr:   # D-NeRF dynamic scenes
             times.append(float(fr["time"]))
 
-    ds = Dataset.from_views(cameras, np.stack(images))
+    ds = Dataset.from_views(cameras, np.stack(images),
+                            masks=np.stack(masks) if masks else None)
     if times and len(times) == len(cameras):
         ds.times = np.asarray(times, np.float32)
     return ds

@@ -1,4 +1,4 @@
-"""PNG reading and writing, and Lanczos resizing, on the standard library
+"""PNG reading and writing, and resizing, on the standard library
 and numpy: the port's stand-in for the Pillow calls of
 ``divshot_tpu/gsio/datasets.py:_load_image`` and
 ``divshot_tpu/gsio/procedural.py:generate_dataset``.
@@ -16,6 +16,8 @@ and numpy: the port's stand-in for the Pillow calls of
   horizontal pass first, each pass in Pillow's 22-bit fixed point and
   rounded to uint8 (``ImagingResample``); RGBA goes through premultiplied
   alpha as Pillow's ``RGBa`` mode does.
+- ``resize_nearest`` and ``to_grey``: Pillow's ``Image.NEAREST`` resize and
+  ``convert("L")``, for the masks of ``divshot_tpu/gsio/datasets.py``.
 """
 
 from __future__ import annotations
@@ -227,3 +229,30 @@ def resize_lanczos(img: np.ndarray, width: int, height: int) -> np.ndarray:
         out = _resample_axis0(out, height)
     out = np.ascontiguousarray(out)
     return _unpremultiply(out) if rgba else out
+
+
+def to_grey(img: np.ndarray) -> np.ndarray:
+    """Pillow's ``convert("L")``: greyscale as is; RGB and RGBA (alpha
+    ignored) by ITU-R 601-2 luma in its 16-bit fixed point, rounded."""
+    if img.ndim == 2:
+        return img
+    rgb = img[..., :3].astype(np.uint32)
+    return ((rgb[..., 0] * 19595 + rgb[..., 1] * 38470 + rgb[..., 2] * 7471
+             + 0x8000) >> 16).astype(np.uint8)
+
+
+def _nearest_index(in_size: int, out_size: int) -> np.ndarray:
+    """The source index of each output position: Pillow walks the centres
+    as a float64 running sum, start ``scale / 2``, step ``scale``, and
+    truncates (``ImagingScaleAffine``)."""
+    scale = in_size / out_size
+    pos = np.add.accumulate(np.concatenate(
+        [[scale * 0.5], np.full(out_size - 1, scale)]))
+    return np.minimum(pos.astype(np.int64), in_size - 1)
+
+
+def resize_nearest(img: np.ndarray, width: int, height: int) -> np.ndarray:
+    """Pillow's ``Image.resize(size, Image.NEAREST)`` of an (H, W) or
+    (H, W, C) uint8 image."""
+    return img[_nearest_index(img.shape[0], height)][
+        :, _nearest_index(img.shape[1], width)]

@@ -98,19 +98,32 @@ class GaussianParams:
     def from_numpy(cls, d: dict, *, device="cuda") -> "GaussianParams":
         """Carry JAX params across: ``d`` maps each field name (``means``,
         ``scales``, ``quats``, ``opacity``, ``sh0``, ``shN``, ``alive``) to
-        that field as a numpy array, capacity padding included."""
+        that field as a numpy array, capacity padding included. A bf16
+        field (``pack_level``'s ``shN``) stays bf16."""
         out = {}
         for f in fields(cls):
-            dtype = np.bool_ if f.name == "alive" else np.float32
-            out[f.name] = torch.as_tensor(
-                np.array(d[f.name], dtype=dtype), device=device)
+            if f.name == "alive":
+                out[f.name] = torch.as_tensor(np.array(d[f.name], np.bool_),
+                                              device=device)
+            else:
+                out[f.name] = to_tensor(d[f.name], device)
         return cls(**out)
 
     def compact_numpy(self) -> dict[str, np.ndarray]:
-        """Host-side float32 arrays with dead and padded splats removed."""
+        """Host-side float32 arrays with dead and padded splats removed,
+        whatever dtype the training buffers are stored in."""
         alive = self.alive.cpu().numpy()
-        return {k: getattr(self, k).detach().cpu().numpy()[alive]
+        return {k: getattr(self, k).detach().float().cpu().numpy()[alive]
                 for k in _FIELDS}
+
+
+def to_tensor(x, device) -> torch.Tensor:
+    """A float numpy array as a float32 tensor on ``device``; a bf16 one
+    (numpy's ``bfloat16`` extension dtype, as JAX hands it over) as a bf16
+    tensor of the same values."""
+    x = np.asarray(x)
+    t = torch.as_tensor(np.array(x, np.float32), device=device)
+    return t.to(torch.bfloat16) if x.dtype.name == "bfloat16" else t
 
 
 def init_from_points(points: np.ndarray, colors: np.ndarray, *,

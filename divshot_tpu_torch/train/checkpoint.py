@@ -5,11 +5,14 @@
 ``point_cloud.ply`` of the params beside it, as in JAX. ``state.pt`` is
 one ``torch.save`` of plain tensors, ints and strings, read back with
 ``weights_only=True``: the params, the Adam moments and step, the
-densification statistics, the strategies' ``torch.Generator`` state and,
-when given, the trainer's view sampler (a numpy ``Generator``, whose
-``bit_generator.state`` is a dict of ints) and its instance capacity. So a
-resumed run takes the same views and draws as an unbroken one (JAX's
-view sampler restarts from the seed).
+densification statistics, the strategies' ``torch.Generator`` state, with
+``enable_bg`` the envmap and its Adam moments (JAX's checkpoint keeps no
+envmap) and, when given, the trainer's view sampler (a numpy
+``Generator``, whose ``bit_generator.state`` is a dict of ints), its
+instance capacity and a streamed run's views drawn ahead of the step. So
+a resumed run takes the same views and draws as an unbroken one (JAX's
+view sampler restarts from the seed). Every tensor keeps the dtype it is
+stored in: ``pack_level``'s bf16 ``shN`` and moments stay bf16.
 """
 
 from __future__ import annotations
@@ -34,7 +37,8 @@ def checkpoint_dir(model_path: str, step: int) -> str:
 
 
 def state_dict(state: TrainState, sampler: np.random.Generator | None = None,
-               instance_capacity: int | None = None) -> dict:
+               instance_capacity: int | None = None,
+               pending_views: list[int] | None = None) -> dict:
     """The train state as plain tensors (on the host), ints and strings."""
     def host(t):
         return t.detach().cpu().clone()
@@ -48,6 +52,10 @@ def state_dict(state: TrainState, sampler: np.random.Generator | None = None,
         "dstate": {f: host(getattr(state.dstate, f)) for f in _DSTATE},
         "gen": state.gen.get_state(),
     }
+    if state.bg is not None:
+        out["bg"] = {k: host(t) for k, t in state.bg.items()}
+    if pending_views:
+        out["pending_views"] = [int(v) for v in pending_views]
     if sampler is not None:
         out["sampler"] = sampler.bit_generator.state
     if instance_capacity is not None:
@@ -58,12 +66,13 @@ def state_dict(state: TrainState, sampler: np.random.Generator | None = None,
 def save_checkpoint(model_path: str, state: TrainState, *, step: int,
                     export_ply: bool = True,
                     sampler: np.random.Generator | None = None,
-                    instance_capacity: int | None = None) -> str:
+                    instance_capacity: int | None = None,
+                    pending_views: list[int] | None = None) -> str:
     """Write ``iteration_{step}/state.pt`` (and its ``point_cloud.ply``)
     -> the directory."""
     path = checkpoint_dir(model_path, step)
     os.makedirs(path, exist_ok=True)
-    torch.save(state_dict(state, sampler, instance_capacity),
+    torch.save(state_dict(state, sampler, instance_capacity, pending_views),
                os.path.join(path, "state.pt"))
     if export_ply:
         P.save_ply(os.path.join(path, "point_cloud.ply"), state.params)
@@ -112,23 +121,30 @@ def _from_state_dict(d: dict, template: TrainState,
     gen.set_state(d["gen"])
     if sampler is not None and "sampler" in d:
         sampler.bit_generator.state = d["sampler"]
-    return TrainState(params=params, opt=opt, dstate=dstate, gen=gen)
+    bg = None
+    if "bg" in d:
+        bg = {k: dev_(t) for k, t in d["bg"].items()}
+    return TrainState(params=params, opt=opt, dstate=dstate, gen=gen, bg=bg)
 
 
 def save_trainer(model_path: str, trainer, *, step: int,
                  export_ply: bool = True) -> str:
-    """``save_checkpoint`` of a ``Trainer``'s state with its view sampler
-    and instance capacity."""
+    """``save_checkpoint`` of a ``Trainer``'s state with its view sampler,
+    instance capacity and views drawn ahead."""
     return save_checkpoint(model_path, trainer.state, step=step,
                            export_ply=export_ply, sampler=trainer._np_rng,
-                           instance_capacity=trainer.instance_capacity)
+                           instance_capacity=trainer.instance_capacity,
+                           pending_views=trainer.pending_views)
 
 
 def resume_trainer(model_path: str, trainer, step: int) -> None:
     """Load ``iteration_{step}`` into a ``Trainer``: its state, its view
-    sampler and, where saved, its instance capacity."""
+    sampler and, where saved, its instance capacity and the views a
+    streamed run had drawn ahead."""
     d = load_state_dict(model_path, step)
     trainer.state = _from_state_dict(d, trainer.state, trainer._np_rng)
+    if trainer.dataset.streamed:
+        trainer.set_pending_views(d.get("pending_views", []))
     icap = d.get("instance_capacity")
     if icap is not None and icap != trainer.instance_capacity:
         trainer._render_kwargs["instance_capacity"] = icap

@@ -6,7 +6,9 @@ decay scaled by the scene extent, shN at feature_lr / 20, and the optional
 visible-only update (``visible_adam``). Written as functions on tensors, as
 in the JAX package, so the densification strategies edit moment buffers
 with the same index operations they apply to the parameters. The step
-count is a host integer: the schedule never reads the card.
+count is a host integer: the schedule never reads the card. A group stored
+in bf16 (``pack_level``: ``shN`` and its moments) is updated in float32
+and rounded back to the dtype each buffer is stored in.
 """
 
 from __future__ import annotations
@@ -89,18 +91,19 @@ def adam_update(cfg: OptimConfig, params: GaussianParams,
     new_p, new_mu, new_nu = {}, {}, {}
     with torch.no_grad():
         for name in PARAM_FIELDS:
-            g = grads[name]
+            g = grads[name].float()
             p = getattr(params, name)
-            mu = state.mu[name] * b1 + _f32(1 - cfg.b1) * g
-            nu = state.nu[name] * b2 + _f32(1 - cfg.b2) * g * g
+            mu0, nu0 = state.mu[name].float(), state.nu[name].float()
+            mu = mu0 * b1 + _f32(1 - cfg.b1) * g
+            nu = nu0 * b2 + _f32(1 - cfg.b2) * g * g
             upd = lrs[name] * (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
             if visible is not None and cfg.visible_adam:
                 mask = visible.reshape((-1,) + (1,) * (p.dim() - 1))
-                mu = torch.where(mask, mu, state.mu[name])
-                nu = torch.where(mask, nu, state.nu[name])
+                mu = torch.where(mask, mu, mu0)
+                nu = torch.where(mask, nu, nu0)
                 upd = torch.where(mask, upd, torch.zeros((), device=p.device))
-            new_p[name] = p - upd
-            new_mu[name] = mu
-            new_nu[name] = nu
+            new_p[name] = (p.float() - upd).to(p.dtype)
+            new_mu[name] = mu.to(state.mu[name].dtype)
+            new_nu[name] = nu.to(state.nu[name].dtype)
     return (dataclasses.replace(params, **new_p),
             AdamState(mu=new_mu, nu=new_nu, step=step))

@@ -1,13 +1,15 @@
 """The static training step and its host loop (counterpart of
 ``divshot_tpu/train/trainer.py``).
 
-One step: pick a view, render it through the kernels, L1 + D-SSIM loss
-(plus the 2DGS geometry losses where configured), the backward kernel and
-the per-splat reduce, autograd back through projection and SH, per-group
-Adam, densification statistics, then refine, alpha reset or MCMC noise on
-the schedule. The step is eager PyTorch: the schedule's branches are plain
-Python on the host step count, and nothing in the step reads a value back
-from the card; ``Trainer.run`` reads the metrics only where it logs them.
+One step: pick a view (or a batch of them), render it through the
+kernels, L1 + D-SSIM loss (plus the 2DGS geometry losses where
+configured), the backward kernel and the per-splat reduce, autograd back
+through projection and SH, per-group Adam, densification statistics, then
+refine, alpha reset or MCMC noise on the schedule. The step is eager
+PyTorch: the schedule's branches are plain Python on the host step count,
+and nothing in the step reads a value back from the card (but
+``debug_nan``'s checks); ``Trainer.run`` reads the metrics only where it
+logs them.
 
 Routes, as in JAX: 3DGS (``model_type=0``) renders through the 3DGS
 kernels (``render``); exact 2DGS (``model_type=1``, ``surfel_exact``, the
@@ -18,13 +20,23 @@ the normal-consistency or the depth-distortion loss, or on 2DGS, the step
 composites the planes ``[z, z^2, nx, ny]`` in the same pass (the surfel
 kernels' own depth planes, or the 3DGS kernels' extra channels).
 
-Ported: the 3DGS and 2DGS models, the geometry losses, one view per step,
-full resolution, images held on the device, the ADC, ADC+ and MCMC
-strategies and the periodic prune. The rest raises ``NotImplementedError``
-naming ROADMAP.md: the background model, masks, dynamic models, streamed
-datasets, batches, progressive resolution, gradient all-reduce across
-chips, buffer packing, NaN debugging and the XLA surfel compositor
-(``backend="surfel"``).
+The JAX trainer's options: the envmap background (``enable_bg``,
+``models/background.py``, with its own Adam), masks (``use_mask``: image
+and ground truth multiplied by the mask before the photometric loss),
+batches of views (``batch_size``), progressive resolution
+(``progressive_train``: x4, then x2, then full), images streamed from host
+memory (``Dataset.from_views(stream=True)``, ``gsio/loader.py``), bf16
+``shN`` and moments (``pack_level``, raised automatically above half the
+device's memory) and ``debug_nan``. JAX's ``jax_debug_nans`` raises at the
+first primitive that makes a NaN; the port's checks are coarser, each
+stage's output (projection, SH colour, the kernels' image and alpha, the
+loss, the backward under ``torch.autograd.detect_anomaly``, each gradient,
+the parameters after Adam and after refine), raising
+``FloatingPointError`` naming the stage; off, they add nothing.
+
+Still raising ``NotImplementedError`` naming ROADMAP.md: the dynamic
+models and datasets, gradient all-reduce across chips
+(``grad_psum_axis``) and the XLA surfel compositor (``backend="surfel"``).
 """
 
 from __future__ import annotations
@@ -40,10 +52,14 @@ import torch
 
 from divshot_tpu_torch.core.config import (DensifyStrategy, ModelType,
                                            TrainConfig)
-from divshot_tpu_torch.raster.render import render
-from divshot_tpu_torch.raster.surfel_raster import render_surfels
+from divshot_tpu_torch.gsio.loader import HostImageStore, Prefetcher
+from divshot_tpu_torch.models.background import (init_envmap,
+                                                 render_background)
+from divshot_tpu_torch.raster.render import frame_inputs, render
+from divshot_tpu_torch.raster.surfel_raster import (render_surfels,
+                                                    surfel_inputs)
 from divshot_tpu_torch.splat.camera import Camera, batch_cameras
-from divshot_tpu_torch.splat.gaussians import GaussianParams
+from divshot_tpu_torch.splat.gaussians import GaussianParams, to_tensor
 from divshot_tpu_torch.splat.math import matvec3
 from divshot_tpu_torch.train import geometry as G
 from divshot_tpu_torch.train import strategy as S
@@ -63,18 +79,20 @@ class TrainState:
     opt: AdamState
     dstate: S.DensifyState
     gen: torch.Generator      # the strategies' random draws
+    bg: dict | None = None    # {"params", "mu", "nu"} envmap with enable_bg
 
     @property
     def step(self) -> int:
         return self.opt.step
 
     @classmethod
-    def init(cls, params: GaussianParams, seed: int = 0) -> "TrainState":
+    def init(cls, params: GaussianParams, seed: int = 0,
+             bg: dict | None = None) -> "TrainState":
         gen = torch.Generator(device=params.device)
         gen.manual_seed(seed)
         return cls(params=params, opt=AdamState.init(params),
                    dstate=S.DensifyState.init(params.capacity,
-                                              params.device), gen=gen)
+                                              params.device), gen=gen, bg=bg)
 
     @classmethod
     def from_numpy(cls, d: dict, *, seed: int = 0,
@@ -82,47 +100,60 @@ class TrainState:
         """Carry a JAX ``TrainState`` across: ``d["params"]`` as for
         ``GaussianParams.from_numpy``; ``d["mu"]`` and ``d["nu"]`` map each
         parameter field to its Adam moment, ``d["step"]`` is the Adam step,
-        ``d["dstate"]`` holds ``grad_accum``, ``count`` and ``max_radii``;
-        all numpy. The JAX random key has no counterpart: the port's draws
+        ``d["dstate"]`` holds ``grad_accum``, ``count`` and ``max_radii``,
+        and ``d["bg"]``, with ``enable_bg``, the envmap's ``params``,
+        ``mu`` and ``nu``; all numpy, bf16 leaves kept bf16. The JAX random key has no counterpart: the port's draws
         come from a generator seeded with ``seed``."""
         params = GaussianParams.from_numpy(d["params"], device=device)
 
         def t(x):
-            return torch.as_tensor(np.array(x, np.float32), device=device)
+            return to_tensor(x, device)
 
         opt = AdamState(mu={f: t(d["mu"][f]) for f in PARAM_FIELDS},
                         nu={f: t(d["nu"][f]) for f in PARAM_FIELDS},
                         step=int(d["step"]))
         ds = S.DensifyState(**{k: t(d["dstate"][k]) for k in
                                ("grad_accum", "count", "max_radii")})
+        bg = None
+        if d.get("bg") is not None:
+            bg = {k: t(d["bg"][k]) for k in ("params", "mu", "nu")}
         state = cls.init(params, seed)
-        return dataclasses.replace(state, opt=opt, dstate=ds)
+        return dataclasses.replace(state, opt=opt, dstate=ds, bg=bg)
 
 
 @dataclass
 class Dataset:
-    """Training views held on the device: ``cameras`` share one resolution,
-    ``images`` is (V, H, W, 3) uint8."""
+    """Training views: ``cameras`` share one resolution; ``images`` is
+    (V, H, W, 3) uint8, on the device, or, streamed, a numpy array on the
+    host that ``gsio/loader.py`` sends to the device a view at a time;
+    ``masks`` (V, H, W), uint8 ``m * 255`` or float in [0, 1], where
+    given, with the images."""
     cameras: list[Camera]
-    images: torch.Tensor
+    images: torch.Tensor | np.ndarray
     scene_extent: float
     points: np.ndarray | None = None   # seed point cloud
     colors: np.ndarray | None = None
-    masks: torch.Tensor | None = None
+    masks: torch.Tensor | np.ndarray | None = None
     times: np.ndarray | None = None
 
     @property
     def num_views(self) -> int:
         return self.images.shape[0]
 
+    @property
+    def device(self) -> torch.device:
+        return self.cameras[0].device
+
+    @property
+    def streamed(self) -> bool:
+        """True when the images stay in host memory and stream to the
+        device per step."""
+        return isinstance(self.images, np.ndarray)
+
     @classmethod
     def from_views(cls, cams: list[Camera], images: np.ndarray, points=None,
                    colors=None, stream: bool = False, masks=None,
                    **kw) -> "Dataset":
-        if stream:
-            raise _unported("a streamed dataset")
-        if masks is not None:
-            raise _unported("training with masks")
         cams = batch_cameras(cams)
         vms = np.stack([c.viewmat for c in cams])
         centers = -np.einsum("nij,ni->nj", vms[:, :3, :3], vms[:, :3, 3])
@@ -131,10 +162,16 @@ class Dataset:
         images = np.asarray(images)
         if images.dtype != np.uint8:
             images = (np.clip(images, 0, 1) * 255).astype(np.uint8)
-        return cls(cameras=cams,
-                   images=torch.as_tensor(images, device=cams[0].device),
+        dev = cams[0].device
+
+        def place(x):
+            x = np.ascontiguousarray(x)
+            return x if stream else torch.as_tensor(x, device=dev)
+
+        return cls(cameras=cams, images=place(images),
                    scene_extent=max(extent, 1e-3), points=points,
-                   colors=colors, **kw)
+                   colors=colors,
+                   masks=None if masks is None else place(masks), **kw)
 
 
 def sh_band_mask(num_coeffs: int, degree: int,
@@ -165,27 +202,16 @@ def hypers_from_config(cfg: TrainConfig) -> dict[str, float]:
 
 
 def check_supported(cfg: TrainConfig, dataset: Dataset | None = None,
-                    *, batch_size: int = 1, res_scale: int = 1,
-                    streamed: bool = False,
-                    grad_psum_axis: str | None = None) -> None:
+                    *, grad_psum_axis: str | None = None) -> None:
     """Raise ``NotImplementedError`` for every option of the JAX trainer
     that the port does not run yet."""
     checks = [
         (cfg.model_type not in (ModelType.GS3D, ModelType.GS2D),
          f"model_type={cfg.model_type} (the dynamic models)"),
-        (cfg.enable_bg, "enable_bg (the background model)"),
-        (cfg.use_mask, "use_mask (training with masks)"),
-        (max(batch_size, cfg.batch_size) > 1, "batch_size > 1"),
-        (res_scale > 1 or cfg.progressive_train,
-         "progressive resolution (res_scale > 1)"),
-        (streamed, "a streamed dataset"),
         (grad_psum_axis is not None, "grad_psum_axis (multi-chip training)"),
-        (cfg.pack_level != 0, "pack_level (packed training buffers)"),
-        (cfg.debug_nan, "debug_nan"),
     ]
     if dataset is not None:
-        checks += [(dataset.masks is not None, "training with masks"),
-                   (dataset.times is not None, "a dynamic dataset")]
+        checks.append((dataset.times is not None, "a dynamic dataset"))
     for bad, what in checks:
         if bad:
             raise _unported(what)
@@ -243,17 +269,46 @@ def geometry_loss(cfg: TrainConfig, planes: torch.Tensor,
     return loss
 
 
+def scaled_camera(camera: Camera, res_scale: int) -> Camera:
+    """``camera`` at 1/``res_scale`` resolution: the width and height
+    floor-divided, the intrinsics times 1/``res_scale`` in float32."""
+    s = np.float32(1.0 / res_scale)
+    f = lambda x: float(np.float32(x) * s)  # noqa: E731
+    return dataclasses.replace(
+        camera, fx=f(camera.fx), fy=f(camera.fy), cx=f(camera.cx),
+        cy=f(camera.cy), width=camera.width // res_scale,
+        height=camera.height // res_scale)
+
+
+def check_finite(stage: str, *tensors) -> None:
+    """``debug_nan``: raise ``FloatingPointError`` naming ``stage`` when a
+    tensor holds a NaN or an infinity (a read back from the device)."""
+    for t in tensors:
+        if t is not None and not bool(torch.isfinite(t.detach()).all()):
+            raise FloatingPointError(
+                f"debug_nan: a non-finite value at the {stage} stage")
+
+
 def make_train_step(cfg: TrainConfig, dataset: Dataset,
                     render_kwargs: dict[str, Any] | None = None,
-                    batch_size: int = 1, res_scale: int = 1,
-                    streamed: bool = False,
+                    res_scale: int = 1, streamed: bool = False,
                     grad_psum_axis: str | None = None) -> Callable:
-    """-> ``train_step(state, view_idx, hypers=None) -> (state, metrics)``.
-    ``metrics`` holds device scalars: loss, psnr, num_alive and the
-    binning's num_instances and max_tile_count."""
-    check_supported(cfg, dataset, batch_size=batch_size,
-                    res_scale=res_scale, streamed=streamed,
-                    grad_psum_axis=grad_psum_axis)
+    """-> ``train_step(state, view_idx, gt_stream=None, mask_stream=None,
+    hypers=None) -> (state, metrics)``. ``metrics`` holds device scalars:
+    loss, psnr, num_alive and the binning's num_instances and
+    max_tile_count.
+
+    ``view_idx`` is an int, or a sequence of B view indices for a batched
+    step: one loss, the mean over the views, one backward, the sinks
+    shared, so the densification gradients are the mean over the views;
+    the radii and the binning metrics are the largest over them, the PSNR
+    that of the first. ``res_scale`` > 1 trains at 1/``res_scale``
+    resolution (``scaled_camera``; the ground truth, cropped to the
+    scaled size times ``res_scale``, average-pooled). ``streamed``: the
+    ground truth (and mask) of the step's views arrive as ``gt_stream``
+    (and ``mask_stream``) from ``gsio/loader.py`` instead of from
+    ``dataset.images``."""
+    check_supported(cfg, dataset, grad_psum_axis=grad_psum_axis)
     rk = render_kwargs_from_config(cfg)
     rk.update(render_kwargs or {})
     backend = rk["backend"]
@@ -268,12 +323,46 @@ def make_train_step(cfg: TrainConfig, dataset: Dataset,
     need_geom = (cfg.normal_consistency_loss
                  or cfg.model_type == ModelType.GS2D
                  or cfg.dist_loss_weight > 0)
+    debug = cfg.debug_nan
     extent = dataset.scene_extent
     dcfg = cfg.densify
-    dev = dataset.images.device
-    bg = torch.full((3,), 1.0 if cfg.white_background else 0.0, device=dev)
-    W, H = dataset.cameras[0].width, dataset.cameras[0].height
+    dev = dataset.device
+    # with the envmap the splats composite over black, and the envmap
+    # fills what they leave
+    bg = torch.full((3,), 1.0 if cfg.white_background and not cfg.enable_bg
+                    else 0.0, device=dev)
+    cams = dataset.cameras if res_scale == 1 else [
+        scaled_camera(c, res_scale) for c in dataset.cameras]
+    W, H = cams[0].width, cams[0].height
     ndc_scale = torch.tensor([W / 2.0, H / 2.0], device=dev)
+
+    def pool(img: torch.Tensor) -> torch.Tensor:
+        """(h, w, C) -> average-pooled to (H, W, C)."""
+        if res_scale == 1:
+            return img
+        s = res_scale
+        img = img[:H * s, :W * s]
+        return img.reshape(H, s, W, s, img.shape[-1]).mean((1, 3))
+
+    def mask_of(raw: torch.Tensor) -> torch.Tensor:
+        m = raw.float()
+        if raw.dtype == torch.uint8:
+            m = m / 255.0
+        return pool(m[..., None])[..., 0]
+
+    def check_inputs(p: GaussianParams, camera: Camera) -> None:
+        """``debug_nan``: the projection and SH colour stages' outputs."""
+        with torch.no_grad():
+            if surfel:
+                proj, colors, _ = surfel_inputs(p, camera,
+                                                with_geometry=need_geom)
+                proj = list(proj.values())
+            else:
+                proj, colors, _ = frame_inputs(
+                    p, camera, eps2d=rk["eps2d"],
+                    antialiased=rk["antialiased"])
+            check_finite("projection", *proj)
+            check_finite("SH colour", colors)
 
     def render_view(p: GaussianParams, camera: Camera, sinks):
         """-> the view's RenderOutput; its ``extra`` holds the planes
@@ -281,10 +370,14 @@ def make_train_step(cfg: TrainConfig, dataset: Dataset,
         sink_kw = dict(absgrad_sink=sinks[0], means2d_sink=sinks[1],
                        npix_sink=sinks[2])
         if surfel:
+            if debug:
+                check_inputs(p, camera)
             return render_surfels(p, camera, background=bg,
                                   with_geometry=need_geom, **sink_kw, **srk)
         if cfg.model_type == ModelType.GS2D:
             p = G.flatten_to_surfels(p)
+        if debug:
+            check_inputs(p, camera)
         aux = None
         if need_geom:
             # camera-space depth and normals; camera-facing, so nz < 0 is
@@ -296,11 +389,45 @@ def make_train_step(cfg: TrainConfig, dataset: Dataset,
         return render(p, camera, background=bg, extra_colors=aux,
                       **sink_kw, **rk)
 
-    def train_step(state: TrainState, view_idx: int,
-                   hypers: dict[str, float] | None = None):
+    def view_loss(p, env, camera, gt, mask, sinks, step, hyp):
+        """One view's render and loss -> (loss, RenderOutput)."""
+        out = render_view(p, camera, sinks)
+        if debug:
+            check_finite("render (image and alpha)", out.image, out.alpha)
+        img = out.image
+        if env is not None:
+            img = img + (1.0 - out.alpha)[..., None] \
+                * render_background(env, camera)
+        if mask is not None:
+            img = img * mask[..., None]
+            gt = gt * mask[..., None]
+        loss = photometric_loss(img, gt, hyp["ssim_weight"],
+                                use_ssim=cfg.ssim_weight > 0)
+        if need_geom:
+            # the geometry terms stay unmasked, as in JAX
+            loss = loss + geometry_loss(cfg, out.extra, out.alpha, camera,
+                                        step, hyp)
+        return loss, out
+
+    def train_step(state: TrainState, view_idx, gt_stream=None,
+                   mask_stream=None, hypers: dict[str, float] | None = None):
         hyp = hypers if hypers is not None else hypers_from_config(cfg)
-        camera = dataset.cameras[view_idx]
-        gt = dataset.images[view_idx].float() / 255.0
+        batched = not isinstance(view_idx, (int, np.integer))
+        views = [int(v) for v in view_idx] if batched else [int(view_idx)]
+        if streamed:
+            raws = list(gt_stream) if batched else [gt_stream]
+            mraws = None if mask_stream is None else (
+                list(mask_stream) if batched else [mask_stream])
+        else:
+            raws = [dataset.images[v] for v in views]
+            mraws = None if dataset.masks is None else [
+                dataset.masks[v] for v in views]
+        gts = [pool(r.float() / 255.0) for r in raws]
+        masks = [None] * len(views) if mraws is None else [
+            mask_of(m) for m in mraws]
+        if cfg.enable_bg and state.bg is None:
+            raise ValueError("enable_bg: the state has no envmap (TrainState"
+                             ".bg); Trainer makes one")
         step = state.opt.step
         params = state.params
         cap = params.capacity
@@ -308,25 +435,52 @@ def make_train_step(cfg: TrainConfig, dataset: Dataset,
 
         leaves = {f: getattr(params, f).detach().requires_grad_(True)
                   for f in PARAM_FIELDS}
+        env = state.bg["params"].detach().requires_grad_(True) \
+            if cfg.enable_bg else None
         sinks = [torch.zeros(shape, device=dev, requires_grad=True)
                  for shape in ((cap, 2), (cap, 2), (cap,))]
         p = dataclasses.replace(params, **leaves)
         p = dataclasses.replace(
             p, shN=p.shN * sh_band_mask(p.shN.shape[1], deg, dev))
-        out = render_view(p, camera, sinks)
-        loss = photometric_loss(out.image, gt, hyp["ssim_weight"],
-                                use_ssim=cfg.ssim_weight > 0)
-        if need_geom:
-            loss = loss + geometry_loss(cfg, out.extra, out.alpha, camera,
-                                        step, hyp)
-        inputs = [*leaves.values(), *sinks]
-        grads = [torch.zeros_like(x) if g is None else g for x, g in zip(
-            inputs, torch.autograd.grad(loss, inputs, allow_unused=True))]
+        losses, outs = [], []
+        for v, gt, mask in zip(views, gts, masks):
+            loss, out = view_loss(p, env, cams[v], gt, mask, sinks, step,
+                                  hyp)
+            losses.append(loss)
+            outs.append(out)
+        loss = torch.stack(losses).mean() if batched else losses[0]
+        if debug:
+            check_finite("loss", loss)
+        inputs = [*leaves.values(), *([env] if env is not None else []),
+                  *sinks]
+        if debug:
+            try:
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore")
+                    with torch.autograd.detect_anomaly(check_nan=True):
+                        raw_grads = torch.autograd.grad(loss, inputs,
+                                                        allow_unused=True)
+            except RuntimeError as e:
+                raise FloatingPointError(
+                    f"debug_nan: a NaN at the backward stage ({e})") from e
+        else:
+            raw_grads = torch.autograd.grad(loss, inputs, allow_unused=True)
+        grads = [torch.zeros_like(x) if g is None else g
+                 for x, g in zip(inputs, raw_grads)]
         g_fields = dict(zip(PARAM_FIELDS, grads[:len(PARAM_FIELDS)]))
-        g_abs, g_m2d, g_npix = grads[len(PARAM_FIELDS):]
+        g_env = grads[len(PARAM_FIELDS)] if env is not None else None
+        g_abs, g_m2d, g_npix = grads[-3:]
+        if len(views) > 1:
+            # the kernels' pixel counts do not scale with the loss: their
+            # sum over the views, made the mean as for the other sinks
+            g_npix = g_npix / len(views)
+        if debug:
+            for name, g in zip((*PARAM_FIELDS, "the envmap"), grads):
+                check_finite(f"gradient ({name})", g)
 
         with torch.no_grad():
-            radii = out.proj.radii
+            radii = outs[0].proj.radii if not batched else torch.stack(
+                [o.proj.radii for o in outs]).amax(0)
             obs = S.DensifyObs(
                 grad2d=torch.linalg.vector_norm(g_m2d * ndc_scale, dim=-1),
                 absgrad2d=torch.linalg.vector_norm(g_abs * ndc_scale,
@@ -340,6 +494,19 @@ def make_train_step(cfg: TrainConfig, dataset: Dataset,
             params = dataclasses.replace(params, opacity=torch.where(
                 params.alive, params.opacity,
                 torch.full((), -15.0, device=dev)))
+            new_bg = state.bg
+            if env is not None:
+                # the envmap's own Adam: no bias correction, as in JAX
+                b1b, b2b, lr_bg = 0.9, 0.999, 0.01
+                mu = state.bg["mu"] * b1b + (1 - b1b) * g_env
+                nu = state.bg["nu"] * b2b + (1 - b2b) * g_env * g_env
+                new_bg = {"params": state.bg["params"]
+                          - lr_bg * mu / (torch.sqrt(nu) + 1e-8),
+                          "mu": mu, "nu": nu}
+            if debug:
+                check_finite("Adam", *(getattr(params, f)
+                                       for f in PARAM_FIELDS),
+                             *(new_bg or {}).values())
             if (dcfg.prune_interval > 0 and step > 0
                     and step % dcfg.prune_interval == 0):
                 params, opt = S.periodic_prune(dcfg, params, opt, dstate,
@@ -356,17 +523,30 @@ def make_train_step(cfg: TrainConfig, dataset: Dataset,
             else:
                 params = S.mcmc_noise(dcfg, cfg.optim, params, step, extent,
                                       hyp, gen=state.gen)
+            if debug:
+                check_finite("refine", *(getattr(params, f)
+                                         for f in PARAM_FIELDS))
             metrics = {
                 "loss": loss.detach(),
-                "psnr": psnr(out.image.detach(), gt),
+                "psnr": psnr(outs[0].image.detach(), gts[0]),
                 "num_alive": params.alive.sum(),
-                "num_instances": out.num_instances,
-                "max_tile_count": out.max_tile_count,
+                "num_instances": outs[0].num_instances if not batched
+                else torch.stack([o.num_instances for o in outs]).amax(),
+                "max_tile_count": outs[0].max_tile_count if not batched
+                else torch.stack([o.max_tile_count for o in outs]).amax(),
             }
         return TrainState(params=params, opt=opt, dstate=dstate,
-                          gen=state.gen), metrics
+                          gen=state.gen, bg=new_bg), metrics
 
     return train_step
+
+
+def _device_memory_bytes(device) -> int:
+    """The device's memory: a card's total, else JAX's 16 GiB fallback."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return int(torch.cuda.get_device_properties(device).total_memory)
+    return 16 * 1024 ** 3
 
 
 class Trainer:
@@ -379,15 +559,43 @@ class Trainer:
         check_supported(cfg, dataset)
         self.cfg = cfg
         self.dataset = dataset
-        self.state = TrainState.init(params, cfg.seed)
+        # packLevel, raised with the reference's memory guard (splats x 236
+        # B x 10 above half the device's memory); bit 1 stores shN and its
+        # Adam moments in bf16
+        pack = cfg.pack_level
+        if params.capacity * 236 * 10 > 0.5 * _device_memory_bytes(
+                params.device):
+            pack |= 3
+        self.pack_level = pack
+        if pack & 1 and params.shN.dtype != torch.bfloat16:
+            params = dataclasses.replace(params,
+                                         shN=params.shN.to(torch.bfloat16))
+        bg = None
+        if cfg.enable_bg:
+            env = init_envmap(init_color=(1, 1, 1) if cfg.white_background
+                              else (0, 0, 0), device=params.device)
+            bg = {"params": env, "mu": torch.zeros_like(env),
+                  "nu": torch.zeros_like(env)}
+        self.state = TrainState.init(params, cfg.seed, bg=bg)
         self._render_kwargs = dict(render_kwargs or {})
         self._hypers = hypers_from_config(cfg)
+        self._streamed = dataset.streamed
         self._build_steps()
         self._np_rng = np.random.default_rng(cfg.seed)
+        self._pending: list[int] = []    # streamed views drawn ahead
+        self._prefetch = None
+        if self._streamed:
+            dev = dataset.device
+            self._prefetch = Prefetcher(
+                HostImageStore(images=dataset.images,
+                               pin=dev.type == "cuda"), depth=2,
+                masks=dataset.masks, device=dev)
         self.metrics_history: list[dict] = []
         self.last_metrics: dict | None = None
 
     def _build_steps(self) -> None:
+        """The step functions: full resolution, and with
+        ``progressive_train`` one per scale of the schedule."""
         rk = self._render_kwargs
         cap = self.state.params.capacity
         mult = rk.get("instance_capacity_mult",
@@ -395,22 +603,82 @@ class Trainer:
         self._instance_capacity = rk.get("instance_capacity") \
             or max(1 << 16, int(mult * cap))
         self._warned_instance_overflow = False
-        self._step_fn = make_train_step(
-            self.cfg, self.dataset,
-            {**rk, "instance_capacity": self._instance_capacity})
+        rk = {**rk, "instance_capacity": self._instance_capacity}
+        self._steps = {s: make_train_step(self.cfg, self.dataset, rk,
+                                          res_scale=s,
+                                          streamed=self._streamed)
+                       for s in (1, *self._schedule_scales())}
+
+    def _schedule_scales(self) -> tuple[int, ...]:
+        if self.cfg.progressive_train and self.cfg.resolution_schedule > 0:
+            return (4, 2)
+        return ()
+
+    def res_scale(self, step: int) -> int:
+        """The resolution divisor of ``step``: 4 below
+        ``resolution_schedule``, 2 below twice that, then 1. A resumed run
+        takes the scale of its step."""
+        if self._schedule_scales():
+            sched = self.cfg.resolution_schedule
+            if step < sched:
+                return 4
+            if step < 2 * sched:
+                return 2
+        return 1
 
     @property
     def instance_capacity(self) -> int:
         """The instance capacity the step renders with now."""
         return self._instance_capacity
 
+    @property
+    def pending_views(self) -> list[int]:
+        """A streamed run's views drawn ahead and not trained on yet."""
+        return list(self._pending)
+
+    def set_pending_views(self, views: list[int]) -> None:
+        """Replace the views drawn ahead (a streamed run's resume): the
+        prefetcher's transfers in flight are taken and dropped, the given
+        views scheduled."""
+        for _ in self._pending:
+            self._prefetch.get()
+        self._pending = [int(v) for v in views]
+        for v in self._pending:
+            self._prefetch.schedule(v)
+
     def step_once(self) -> dict:
-        """One step on a random view."""
-        view = int(self._np_rng.integers(self.dataset.num_views))
-        self.state, metrics = self._step_fn(self.state, view,
-                                            hypers=self._hypers)
+        """One step on random views: ``cfg.batch_size`` of them when > 1,
+        in the order the device-resident and streamed runs share."""
+        bsz = max(1, self.cfg.batch_size)
+        step_fn = self._steps[self.res_scale(self.state.step)]
+        if self._streamed:
+            if bsz > 1:
+                raise NotImplementedError(
+                    "batch_size > 1 requires in-HBM images (stream=False)")
+            # keep 2 host->device transfers in flight ahead of compute
+            while len(self._pending) < 2:
+                v = int(self._np_rng.integers(self.dataset.num_views))
+                self._prefetch.schedule(v)
+                self._pending.append(v)
+            view, gt, mask = self._prefetch.get()
+            self._pending.pop(0)
+            self.state, metrics = step_fn(self.state, view, gt, mask,
+                                          hypers=self._hypers)
+        else:
+            if bsz > 1:
+                view = [int(v) for v in self._np_rng.integers(
+                    self.dataset.num_views, size=bsz)]
+            else:
+                view = int(self._np_rng.integers(self.dataset.num_views))
+            self.state, metrics = step_fn(self.state, view,
+                                          hypers=self._hypers)
         self.last_metrics = metrics
         return metrics
+
+    def close(self) -> None:
+        """Stop a streamed run's prefetch thread."""
+        if self._prefetch is not None:
+            self._prefetch.close()
 
     def run(self, num_iters: int | None = None, log_every: int = 500,
             callback: Callable | None = None) -> None:

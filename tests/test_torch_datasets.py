@@ -171,8 +171,16 @@ def test_generated_dataset_loads_equal_in_both_packages(tmp_path):
 
 @pytest.mark.parametrize("what", ["use_mask", "nerfstudio"])
 def test_unported_dataset_options_raise(tmp_path, what):
+    """The external-pose readers still raise; ``use_mask``, ported since,
+    loads the COLMAP scene's masks bitwise as JAX's loader does."""
     _colmap_scene(str(tmp_path), np.random.default_rng(0))
-    kw = {"use_mask": True} if what == "use_mask" else {}
+    if what == "use_mask":
+        train, _ = load_dataset(str(tmp_path), "colmap", device=CPU,
+                                use_mask=True)
+        jtrain, _ = jax_load_dataset(str(tmp_path), "colmap", use_mask=True)
+        assert train.masks.dtype == torch.uint8
+        np.testing.assert_array_equal(train.masks.numpy(),
+                                      np.asarray(jtrain.masks))
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_dataset(str(tmp_path), "colmap" if kw else what, device=CPU,
-                     **kw)
+        load_dataset(str(tmp_path), what, device=CPU)

@@ -1,8 +1,8 @@
 """The port stands alone: with JAX, flax, PIL and ``divshot_tpu`` blocked,
 every module of ``divshot_tpu_torch`` imports and ``chip_smoke.py``'s
 kernel (with the backward kernels' unit split), viewer-path, training-path,
-2DGS training-path and dataset-path phases run on the CPU at a tiny scale,
-with a ``kernels`` record for every kernel. Also checks on
+2DGS training-path, dataset-path and trainer-options phases run on the CPU
+at a tiny scale, with a ``kernels`` record for every kernel. Also checks on
 the port's files: no JAX or ``divshot_tpu`` import outside docstrings, no
 file over 200 KB, and the kernel build directory ignored by git."""
 
@@ -37,6 +37,8 @@ with contextlib.redirect_stdout(buf):
     train = chip_smoke.phase_training(dev, chip_smoke.TINY)
     train2d = chip_smoke.phase_training_2dgs(dev, chip_smoke.TINY)
     data = chip_smoke.phase_dataset(dev, chip_smoke.TINY)
+    opts = chip_smoke.phase_options(dev, chip_smoke.TINY)
+    chip_smoke.drop_bricks()
 out = buf.getvalue()
 assert '"ok"' not in out, out
 assert all(v == 0.0 for v in checks.values()), checks
@@ -70,7 +72,24 @@ assert [(r["scene"], r["name"]) for r in data] == [
 assert "resumed from iteration_8" in out
 assert "checkpoint bitwise equal to the state saved, PLY render bitwise" in out
 assert all(r["it_per_s"] > 0 and r["eval_views_per_s"] > 0 for r in data)
-for r in records + train + train2d + data:
+assert [(r["scene"], r["name"]) for r in opts] == [
+    (f"opt_{s}", k) for s in ("x1_64", "batch4_64", "bg_mask_64", "x4_16",
+                              "x2_32", "pack1_64", "stream_64")
+    for k in ("expand", "forward", "backward")] + [
+    ("opt2d_b2_bg_mask_64", k) for k in ("expand", "surfel_forward",
+                                         "surfel_backward")] + [
+    ("opt_app_bricks_32", k) for k in ("expand", "forward", "backward")]
+assert all(r["it_per_s"] > 0 for r in opts)
+assert opts[3]["views_per_s"] == 4 * opts[3]["it_per_s"]
+assert opts[18]["copy_ms_per_view"] > 0
+assert "every step's ground truth bitwise the device-resident one" in out
+assert "views/s at batch 4" in out
+assert "(c) scales: step 6 x1, step 11 x1 (schedule 3)" in out
+assert "resumed from iteration_6" in out
+assert "checkpoint bitwise, PLY float32 equal to the bf16 shN" in out
+assert ("(d) a NaN mean after step 1 raised, as expected" in out
+        and "at the projection stage" in out)
+for r in records + train + train2d + data + opts:
     assert keys <= set(r), r
     assert r["route"] == "cuda" and r["library_ms"] is None
     assert r["max_abs_err"] == 0.0 and r["bound_ms"] > 0

@@ -1,7 +1,8 @@
 """The port's trainer and train app on the CPU: the loss bars of
 ``tests/test_train.py`` met through the port, the capacity growth from
-measured demand, the carried-across state, the 2DGS demo, and the options
-that are not ported yet raising instead of being ignored."""
+measured demand, the carried-across state, the 2DGS demo, the app's option
+flags, and the options that are not ported yet raising instead of being
+ignored."""
 
 import numpy as np
 import pytest
@@ -132,17 +133,15 @@ def test_train_state_carry_across_and_step_schedule():
 
 def test_unported_options_raise():
     cfg, ds, params = _tiny()
-    for kw in (dict(model_type=2), dict(model_type=3), dict(enable_bg=True),
-               dict(use_mask=True), dict(batch_size=2),
-               dict(progressive_train=True), dict(pack_level=1)):
+    for kw in (dict(model_type=2), dict(model_type=3)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Trainer(cfg.replace(**kw), ds, params)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_train_step(cfg, ds, res_scale=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_train_step(cfg, ds, grad_psum_axis="data")
+    dynamic = Dataset.from_views(ds.cameras, ds.images.numpy(),
+                                 times=np.linspace(0, 1, ds.num_views))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Dataset.from_views(ds.cameras, ds.images.numpy(), stream=True)
+        Trainer(cfg, dynamic, params)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         render(params, ds.cameras[0], backend="tiles")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -153,12 +152,38 @@ def test_unported_options_raise():
 
 
 @pytest.mark.parametrize("flag", [
-    ["--mesh_resolution", "128"], ["--progressive_train", "1"],
-    ["--pack_level", "1"], ["--debug_nan", "1"], ["--export_mesh", "1"],
-    ["--model_type", "2"], ["--enable_bg", "1"], ["--use_mask", "1"]])
+    ["--mesh_resolution", "128"], ["--export_mesh", "1"],
+    ["--model_type", "2"], ["--model_type", "3"]])
 def test_train_app_unported_flags_raise(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train_app.main(["--demo", "--device", "cpu", *flag])
+
+
+@pytest.mark.parametrize("flag", [
+    ["--enable_bg", "1"], ["--use_mask", "1"],
+    ["--progressive_train", "1", "--resolution_schedule", "1"],
+    ["--pack_level", "1"], ["--debug_nan", "1"]])
+def test_train_app_runs_option_flags(flag, monkeypatch, tmp_path):
+    """Each ported option flag trains a few ``--demo`` steps on the CPU,
+    the demo scene cut small, and writes the outputs."""
+    monkeypatch.setattr(train_app, "DEMO_SPLATS", 300)
+    monkeypatch.setattr(train_app, "DEMO_VIEWS", 2)
+    monkeypatch.setattr(train_app, "DEMO_WIDTH", 48)
+    tr = train_app.run(["--demo", "--device", "cpu", "--iterations", "3",
+                        "--cap_max", "1024", "--model_path", str(tmp_path),
+                        *flag])
+    assert tr is not None and tr.state.step == 3
+    field = flag[0][2:]
+    assert getattr(tr.cfg, field) == int(flag[1])
+    assert (tr.state.bg is not None) == (field == "enable_bg")
+    assert (tr.state.params.shN.dtype == torch.bfloat16) == (
+        field == "pack_level")
+    if field == "progressive_train":
+        assert tr.res_scale(0) == 4 and tr.res_scale(1) == 2
+    for name in ("point_cloud.ply", "iteration_3/state.pt",
+                 "iteration_3/point_cloud.ply"):
+        assert (tmp_path / name).exists(), name
+    assert np.isfinite(float(tr.last_metrics["loss"]))
 
 
 @pytest.mark.parametrize("exact", ["1", "0"])
