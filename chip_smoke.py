@@ -85,7 +85,33 @@ Phases, each a function of ``(device, scale)``:
    ``FloatingPointError`` at the projection stage. Each of (a)-(c) counts
    its launches and holds its kernels against their plain versions at its
    own shapes, with the cotangent of its own loss (the envmap composited,
-   the mask applied, a batch's 1/B).
+   the mask applied, a batch's 1/B);
+9. the live-training session (``train/session.py``, ``viewer/live.py``,
+   ``apps/viewer.py``): (a) ``apps.viewer``'s demo session (20K
+   ground-truth splats, 32 orbit views at 400 px, 100K random splats in
+   the default 2M capacity, the session's fixed instance capacity of
+   2^20) trained 300 steps on its thread with a snapshot every 100, while
+   this thread polls ``/status`` and ``/splats`` over HTTP from a
+   ``LiveViewerServer`` on port 0: the generation advances at least
+   twice, each payload is ``splat_bytes`` of the snapshot of its
+   generation with one 32-byte record per alive splat, ``?max=`` bounds
+   it, the run ends in ``Training_Done`` at 300 with no error; the
+   session's it/s against the same config stepped by ``Trainer.step_once``
+   in a plain loop before and after, the ms of one snapshot against a
+   whole-capacity copy, the instance demand against 2^20; then
+   ``apps.viewer.main --demo`` for 20 steps in this process (rc 0); (b)
+   the controls on the demo's views (100K random splats in a 262,144
+   capacity), as 3DGS, as exact 2DGS (the surfel kernels) and streamed: a pause holds the iteration for 0.5 s, a queued
+   ``pos_lr_init`` keeps the step functions, a queued ``ssim_weight`` 0
+   rebuilds them, a queued ``num_iters`` ends the run there; (c)
+   ``load_train_data`` on phase 7's ``tpu_bricks``, 100 steps through the
+   session, ``save_model`` to a PLY read back and rendered bitwise as the
+   snapshot's params, and a folder of bare PNGs with no COLMAP ending in
+   ``Loading_Failed``; (d) LPIPS with random weights at 800x800, on the
+   card against the CPU (1e-4 relative), its ms, and ``evaluate`` with
+   ``DIVSHOT_LPIPS_WEIGHTS`` set. (a) and the 2DGS run of (b) count their
+   launches and hold their kernels against their plain versions at their
+   own shapes. Any ``session.error`` fails the phase.
 
 Both compositing routes, 3DGS and surfels, go through one harness
 (``Route``, ``Frame``, ``kernel_records``, ``stage_times``). It prints
@@ -102,11 +128,13 @@ import dataclasses
 import io
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
 import tempfile
 import time
+import urllib.request
 from collections.abc import Callable
 from dataclasses import dataclass
 from pathlib import Path
@@ -116,8 +144,11 @@ import torch
 
 from divshot_tpu_torch import _build
 from divshot_tpu_torch.apps import train as train_app
+from divshot_tpu_torch.apps import viewer as viewer_app
 from divshot_tpu_torch.apps.render import orbit_for_model, render_orbit
 from divshot_tpu_torch.core.config import DensifyStrategy, TrainConfig
+from divshot_tpu_torch.core.metrics import TrainingStatus
+from divshot_tpu_torch.core.profiling import StepTimer, profile_scope
 from divshot_tpu_torch.gsio.datasets import load_dataset
 from divshot_tpu_torch.gsio.io import load_model
 from divshot_tpu_torch.gsio.loader import HostImageStore
@@ -137,13 +168,19 @@ from divshot_tpu_torch.raster.units import (UNIT, backward_schedule,
                                             forward_cull_plain, is_long)
 from divshot_tpu_torch.splat.gaussians import GaussianParams, init_from_points
 from divshot_tpu_torch.train import checkpoint as CK
+from divshot_tpu_torch.train.evaluate import evaluate
 from divshot_tpu_torch.train.losses import photometric_loss
+from divshot_tpu_torch.train.lpips import (load_weights, lpips_fn,
+                                           random_weights)
+from divshot_tpu_torch.train.session import TrainerSession
 from divshot_tpu_torch.train.trainer import (Dataset, Trainer, TrainState,
                                              geometry_loss,
                                              hypers_from_config,
                                              make_train_step,
                                              render_kwargs_from_config,
                                              scaled_camera)
+from divshot_tpu_torch.viewer.html_export import splat_bytes
+from divshot_tpu_torch.viewer.live import LiveViewerServer
 
 REPO = Path(__file__).resolve().parent
 MODEL = REPO / "runs" / "tpu_bricks_mcmc" / "point_cloud.ply"
@@ -327,16 +364,23 @@ class Scale:
     nan_iters: int        # resolution_schedule, eval_every,
     #                       checkpoint_every, reset_alpha_every), steps of
     #                       the debug_nan runs
+    session_demo: tuple   # phase 9: the demo's (GT splats, views, width,
+    #                       cap_max, 0 for the default), and (the live
+    session_iters: tuple  # session's steps, snapshot_every, the plain
+    #                       loop's steps, the steps between two controls,
+    #                       the viewer app's steps, the dataset session's)
 
 
 FULL = Scale(1920, 1080, 4, 1, 1_000_000, 1 << 24, 50_000, 512, 10,
              150, 50_000, 100_000, 1 << 17, 800, 4, 30, 20, 60,
              800, (24, 8), 262_144, 300, 200, (100, 100, 50),
-             20, 4, (150, 60, 40, 50, 30, 20), 5)
+             10, 4, (150, 60, 40, 50, 30, 20), 5,
+             (20_000, 32, 400, 0), (300, 100, 30, 3, 20, 100))
 TINY = Scale(64, 48, 1, 512, 1_500, 1 << 16, 400, 64, 1,
              3, 300, 500, 1 << 10, 64, 2, 2, 0, 3,
              32, (3, 2), 1024, 12, 8, (4, 4, 3),
-             2, 2, (12, 6, 3, 4, 3, 2), 3)
+             2, 2, (12, 6, 3, 4, 3, 2), 3,
+             (300, 2, 32, 1024), (12, 3, 2, 2, 2, 3))
 
 
 def log(msg: str) -> None:
@@ -1241,19 +1285,21 @@ def render_forward_backward(route: Route, params: GaussianParams, cam,
 # training path
 
 
-def count_launches(fn, device: torch.device, steps: int, what: str,
+def count_launches(fn, device: torch.device, steps: int | None, what: str,
                    only_steps: bool = True, kernels=TRAIN_KERNELS):
     """Run ``fn()`` with every launch count set to 0 just before and read
     just after -> (its result, the counts). On a card each of ``kernels``
     (those of the training path it drives) must have been launched. With
     ``only_steps`` (``fn`` launches nothing but its ``steps`` train steps)
-    the launches per step are printed too."""
+    the launches per step are printed too; ``steps`` None: not known
+    ahead."""
     sync(device)
     _build.reset_launches()
     out = fn()
     sync(device)
     launches = dict(_build.LAUNCHES)
-    log(f"  {what}: launches over {steps} steps {launches}" + (
+    over = "" if steps is None else f" over {steps} steps"
+    log(f"  {what}: launches{over} {launches}" + (
         ", per step " + ", ".join(f"{k} {launches[k] / steps:.3f}"
                                   for k in kernels)
         if only_steps else ""))
@@ -2319,6 +2365,437 @@ def phase_options(device: torch.device, scale: Scale) -> list[dict]:
 
 
 # --------------------------------------------------------------------------
+# the live-training session: TrainerSession, the live viewer server and
+# apps.viewer, the dataset through the session, LPIPS
+
+
+@contextlib.contextmanager
+def demo_scale(scale: Scale):
+    """``apps.train``'s demo scene (which ``apps.viewer --demo`` trains
+    towards) at this scale's size, restored after; at FULL the demo's own
+    20K splats and 32 views at 400 px."""
+    names = ("DEMO_SPLATS", "DEMO_VIEWS", "DEMO_WIDTH")
+    old = [getattr(train_app, n) for n in names]
+    for n, v in zip(names, scale.session_demo[:3]):
+        setattr(train_app, n, v)
+    try:
+        yield
+    finally:
+        for n, v in zip(names, old):
+            setattr(train_app, n, v)
+
+
+def _session_cfg(scale: Scale, **kw) -> TrainConfig:
+    """The default config (``cap_max`` 2M at FULL) with ``kw``."""
+    cfg = TrainConfig(**kw)
+    if scale.session_demo[3]:
+        cfg.densify.cap_max = scale.session_demo[3]
+    return cfg
+
+
+def _cap_flags(scale: Scale) -> list[str]:
+    cap = scale.session_demo[3]
+    return ["--cap_max", str(cap)] if cap else []
+
+
+def _wait(sess: TrainerSession, pred, what: str,
+          timeout: float = 300.0) -> None:
+    """Wait for ``pred()``; raise on the session's error or at the
+    deadline."""
+    deadline = time.perf_counter() + timeout
+    while not pred():
+        if sess.error:
+            raise AssertionError(f"{what}: the session failed:\n"
+                                 f"{sess.error}")
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"{what}: timed out")
+        time.sleep(0.01)
+    if sess.error:
+        raise AssertionError(f"{what}: the session failed:\n{sess.error}")
+
+
+def _finished(sess: TrainerSession, iters: int, what: str) -> None:
+    _wait(sess, sess.is_terminated, what)
+    sess.terminate()
+    if (sess.error or sess.status != TrainingStatus.TRAINING_DONE
+            or sess.current_iteration != iters):
+        raise AssertionError(f"{what}: ended in {sess.status.value} at "
+                             f"iteration {sess.current_iteration} of "
+                             f"{iters}: {sess.error}")
+
+
+def _http(port: int, path: str) -> tuple[dict, bytes]:
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=60) as r:
+        return dict(r.headers), r.read()
+
+
+def _poll_live(sess: TrainerSession, server: LiveViewerServer,
+               max_splats: int) -> dict:
+    """Poll ``/status`` while the session trains, as the page does, and
+    fetch ``/splats`` whenever the generation moves; hold each payload
+    against ``splat_bytes`` of the snapshot of its generation (when the
+    snapshot has not moved on meanwhile) and its size against the alive
+    splats, and one ``?max=`` payload against its bound."""
+    gens, checked, seen, decimated = set(), 0, -1, False
+    while not sess.is_terminated():
+        st = json.loads(_http(server.port, "/status")[1])
+        if st["phase"] == "Training":
+            gens.add(st["generation"])
+        if st["generation"] != seen:
+            headers, body = _http(server.port, "/splats")
+            seen = int(headers["X-Generation"])
+            snap = sess.get_params_snapshot()
+            if sess.snapshot_generation == seen:
+                want = 32 * min(snap.capacity, server.max_splats)
+                if len(body) != want or body != splat_bytes(snap):
+                    raise AssertionError(
+                        f"/splats at generation {seen}: {len(body)} bytes, "
+                        f"not splat_bytes of the snapshot ({want})")
+                checked += 1
+                if not decimated and snap.capacity > max_splats:
+                    part = _http(server.port, f"/splats?max={max_splats}")[1]
+                    if len(part) != 32 * max_splats:
+                        raise AssertionError("/splats?max= size")
+                    decimated = True
+        time.sleep(0.05)
+    if sess.error:
+        raise AssertionError(f"(a) the session failed:\n{sess.error}")
+    if len(gens) < 3 or checked < 2 or not decimated:
+        raise AssertionError(f"the live viewer saw generations {sorted(gens)}"
+                             f" while training, checked {checked} payloads "
+                             f"(decimated: {decimated})")
+    return {"generations": sorted(gens), "payloads_checked": checked}
+
+
+def _plain_its(sess: TrainerSession, steps: int, device) -> float:
+    """it/s of ``steps`` calls of ``Trainer.step_once`` on the session's
+    trainer, in a plain loop on this thread, after one step untimed; timed
+    by ``core/profiling.StepTimer`` fenced on the card, in a named
+    scope."""
+    tr = sess.trainer
+    tr.step_once()
+    sync(device)
+    timer = StepTimer(fence_every=1)
+    with timer.scope("plain loop", fence_on=device), \
+            profile_scope("plain loop"):
+        for _ in range(steps):
+            tr.step_once()
+    return steps / (timer.summary()["plain loop"]["last_ms"] / 1e3)
+
+
+def _snapshot_ms(sess: TrainerSession, device, reps: int = 2
+                 ) -> tuple[float, float]:
+    """ms of one session snapshot (the alive rows gathered on the card,
+    one copy to the host) and of a whole-capacity copy of every field, as
+    JAX's snapshot makes it; the host's clock, the card idle at the
+    start."""
+    p = sess.trainer.state.params
+    out = []
+    for fn in (sess._take_snapshot,
+               lambda: [getattr(p, f).cpu().numpy() for f in (
+                   "means", "scales", "quats", "opacity", "sh0", "shN",
+                   "alive")]):
+        fn()
+        sync(device)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        sync(device)
+        out.append((time.perf_counter() - t0) * 1e3 / reps)
+    return out[0], out[1]
+
+
+def session_live(device: torch.device, scale: Scale):
+    """(a) ``apps.viewer``'s demo session trained on its thread while this
+    thread polls the live viewer over HTTP; the plain loop before and
+    after; a snapshot's ms; the instance demand against the session's
+    fixed capacity; then ``apps.viewer.main --demo`` in this process ->
+    (the kernel records, the session)."""
+    iters, snap_every, plain_iters, _, app_iters, _ = scale.session_iters
+    cfg = _session_cfg(scale, num_iters=iters)
+    t0 = time.perf_counter()
+    with demo_scale(scale):
+        sess = viewer_app.demo_session(cfg, device,
+                                       snapshot_every=snap_every)
+    setup_s = time.perf_counter() - t0
+    alive = sess.trainer.state.params.num_alive
+    plain = TrainerSession(cfg, device=device, snapshot_every=0)
+    plain.load_synthetic(sess.trainer.dataset)
+    plain.trainer.step_once()
+    demand1 = int(plain.trainer.last_metrics["num_instances"])
+    before = _plain_its(plain, plain_iters, device)
+    server = LiveViewerServer(sess, port=0).start()
+    try:
+        def run():
+            sess.start_train()
+            return _poll_live(sess, server, max(1, alive // 2))
+        live, launches = count_launches(run, device, iters, "(a) live session",
+                                        only_steps=False)
+        _finished(sess, iters, "(a) live session")
+    finally:
+        server.stop()
+    after = _plain_its(plain, plain_iters, device)
+    its = iters / sess.train_seconds
+    snap_ms, full_ms = _snapshot_ms(sess, device)
+    m = sess.trainer.last_metrics
+    demand, icap = int(m["num_instances"]), sess.trainer.instance_capacity
+    cam = sess.get_camera(0)
+    log(f"  (a) demo session: {sess.num_cameras} views at {cam.width}x"
+        f"{cam.height}, {alive} splats in capacity "
+        f"{sess.trainer.state.params.capacity}, set up in {setup_s:.2f} s; "
+        f"{iters} steps at {its:.2f} it/s (snapshots every {snap_every}, "
+        f"the viewer polled), the plain loop {before:.2f} / {after:.2f} it/s"
+        f" before / after; generations seen while training "
+        f"{live['generations']}, {live['payloads_checked']} payloads equal "
+        f"to splat_bytes of their snapshot; loss {sess.current_loss:.5f}")
+    log(f"  (a) one snapshot ({alive} alive splats): {snap_ms:.3f} ms; a "
+        f"whole-capacity copy of every field: {full_ms:.3f} ms; instance "
+        f"demand {demand1} at step 1, {demand} at step {iters}, of the "
+        f"fixed capacity {icap} (max tile count "
+        f"{int(m['max_tile_count'])}"
+        + ("; instances were dropped)" if max(demand, demand1) > icap
+           else ")"))
+    recs = trainer_records(f"session_{cam.width}", sess.trainer, device,
+                           scale, launches, iters)
+    for r in recs:
+        r.update(it_per_s=its, plain_it_per_s=[before, after],
+                 snapshot_ms=snap_ms, snapshot_full_ms=full_ms,
+                 demand=demand, demand_step1=demand1,
+                 instance_capacity=icap)
+    buf = io.StringIO()
+    with demo_scale(scale), contextlib.redirect_stdout(buf):
+        rc = viewer_app.main(["--demo", "--port", "0", "--num_iters",
+                              str(app_iters), "--device", device.type,
+                              *_cap_flags(scale)])
+    for line in buf.getvalue().splitlines():
+        log(f"  (a) apps.viewer: {line}")
+    if rc != 0:
+        raise AssertionError(f"apps.viewer.main --demo returned {rc}")
+    plain.close()
+    return recs, sess
+
+
+def session_control(label: str, ds: Dataset, device: torch.device,
+                    scale: Scale, kernels=TRAIN_KERNELS, **cfg_kw):
+    """(b) The session's controls on ``ds``: a pause holds the iteration
+    for 0.5 s; a queued ``pos_lr_init`` keeps the step functions; a queued
+    ``ssim_weight`` 0 rebuilds them; a queued ``num_iters`` ends the run
+    there -> (the session, its launch counts)."""
+    gap = scale.session_iters[3]
+    cfg = _session_cfg(scale, num_iters=10_000, **cfg_kw)
+    # the 100K random splats in phase 7's capacity, not the demo's 2M: the
+    # controls do not need the capacity, and Adam over it is the step's
+    cfg.densify.cap_max = min(cfg.densify.cap_max, scale.data_capacity)
+    sess = TrainerSession(cfg, device=device, snapshot_every=0)
+    sess.load_synthetic(ds)
+    tr = sess.trainer
+    step0 = tr._steps[1]
+
+    def hold(n):
+        _wait(sess, lambda: sess.current_iteration >= n, f"(b) {label}")
+        sess.pause_train()
+        _wait(sess, sess.is_paused, f"(b) {label}: the pause")
+        return sess.current_iteration
+
+    def run():
+        sess.start_train()
+        it = hold(gap)
+        time.sleep(0.5)
+        if sess.current_iteration != it or sess.is_training():
+            raise AssertionError(f"(b) {label}: the pause did not hold")
+        lr = cfg.optim.pos_lr_init * 0.5
+        sess.update_config(lambda c: c.replace(
+            optim=dataclasses.replace(c.optim, pos_lr_init=lr)))
+        sess.resume()
+        it = hold(it + gap)
+        if tr._steps[1] is not step0 or tr._hypers["pos_lr_init"] != float(
+                np.float32(lr)):
+            raise AssertionError(f"(b) {label}: a hyper change rebuilt the "
+                                 f"steps or did not reach them")
+        sess.update_config(lambda c: c.replace(ssim_weight=0.0))
+        sess.resume()
+        it = hold(it + gap)
+        if tr._steps[1] is step0 or tr._hypers["ssim_weight"] != 0.0:
+            raise AssertionError(f"(b) {label}: ssim_weight 0 did not "
+                                 f"rebuild the steps")
+        sess.update_config(lambda c: c.replace(num_iters=it + gap))
+        sess.resume()
+        _finished(sess, it + gap, f"(b) {label}")
+        return it + gap
+
+    t0 = time.perf_counter()
+    end, launches = count_launches(run, device, None,
+                                   f"(b) {label} controls",
+                                   only_steps=False, kernels=kernels)
+    log(f"  (b) {label}: the pause held 0.5 s, pos_lr_init kept the steps, "
+        f"ssim_weight 0 rebuilt them, num_iters ended the run at {end} "
+        f"({time.perf_counter() - t0:.2f} s)")
+    return sess, launches
+
+
+def session_dataset(device: torch.device, scale: Scale):
+    """(c) ``load_train_data`` on phase 7's ``tpu_bricks`` (white
+    background), trained through the session; ``save_model`` to PLY read
+    back bitwise as the snapshot's params and rendered bitwise as them; a
+    folder of bare PNGs with no COLMAP ends in ``LOADING_FAILED`` ->
+    (the session, its trained params on the card)."""
+    steps = scale.session_iters[5]
+    data, _ = bricks(device, scale)
+    cfg = TrainConfig(num_iters=steps, white_background=True)
+    cfg.densify.cap_max = scale.data_capacity
+    sess = TrainerSession(cfg, device=device, snapshot_every=0)
+    t0 = time.perf_counter()
+    sess.load_train_data(data)
+    load_s = time.perf_counter() - t0
+    loaded = sess.status
+    if loaded != TrainingStatus.PREPROCESS_DONE:
+        raise AssertionError(f"(c) load_train_data: {sess.status.value}: "
+                             f"{sess.error}")
+
+    def run():
+        sess.start_train()
+        _finished(sess, steps, "(c) dataset session")
+
+    _, launches = count_launches(run, device, steps, "(c) dataset session",
+                                 only_steps=False)
+    snap = sess.get_params_snapshot()
+    with tempfile.TemporaryDirectory() as tmp:
+        sess.save_model(f"{tmp}/model.ply")
+        ply, _ = load_model(f"{tmp}/model.ply", device=device)
+        bad = []
+        for f in ("means", "scales", "quats", "opacity", "sh0", "shN",
+                  "alive"):
+            if not torch.equal(getattr(ply, f).cpu(), getattr(snap, f)):
+                bad.append(f)
+        params = GaussianParams.from_numpy(
+            {f: getattr(snap, f).numpy() for f in (
+                "means", "scales", "quats", "opacity", "sh0", "shN",
+                "alive")}, device=device)
+        cam = sess.get_camera(0)
+        bg = torch.ones((3,), device=device)
+        icap = sess.trainer.instance_capacity
+        with torch.no_grad():
+            a = render(params, cam, background=bg, instance_capacity=icap)
+            b = render(ply, cam, background=bg, instance_capacity=icap)
+        if bad or not (torch.equal(a.image, b.image)
+                       and torch.equal(a.alpha, b.alpha)):
+            raise AssertionError(f"(c) the saved PLY differs from the "
+                                 f"snapshot ({bad}) or renders otherwise")
+        bare = Path(tmp, "bare")
+        bare.mkdir()
+        for png in sorted(Path(data, "train").glob("*.png"))[:3]:
+            shutil.copy(png, bare / png.name)
+        env = {k: os.environ.pop(k, None) for k in ("DIVSHOT_COLMAP",)}
+        path = os.environ.get("PATH", "")
+        os.environ["PATH"] = ""
+        try:
+            fail = TrainerSession(cfg, device=device)
+            fail.load_train_data(str(bare))
+        finally:
+            os.environ["PATH"] = path
+            for k, v in env.items():
+                if v is not None:
+                    os.environ[k] = v
+        if (fail.status != TrainingStatus.LOADING_FAILED
+                or "COLMAP" not in (fail.error or "")):
+            raise AssertionError(f"(c) bare PNGs: {fail.status.value}, "
+                                 f"{fail.error}")
+    demand = int(sess.trainer.last_metrics["num_instances"])
+    log(f"  (c) tpu_bricks at {cam.width}x{cam.height}: loaded to "
+        f"{loaded.value} in {load_s:.2f} s, {steps} steps at "
+        f"{steps / sess.train_seconds:.2f} it/s, instance demand {demand} of "
+        f"the fixed capacity {icap}; the saved PLY bitwise the "
+        f"snapshot and rendered bitwise as it; bare PNGs without COLMAP "
+        f"ended in {fail.status.value} ({fail.error.splitlines()[0][:60]})")
+    return sess, params
+
+
+def session_lpips(sess: TrainerSession, params: GaussianParams,
+                  device: torch.device, scale: Scale) -> dict:
+    """(d) LPIPS with random weights in the torchvision layout: on the card
+    against the same function on the CPU at the dataset's resolution
+    (within 1e-4 relative), its ms a view pair, and ``evaluate`` with
+    ``DIVSHOT_LPIPS_WEIGHTS`` set against the same evaluation without."""
+    ev = sess._eval_dataset
+    bg = torch.ones((3,), device=device)
+    rk = {"instance_capacity": sess.trainer.instance_capacity}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = random_weights(f"{tmp}/lpips.npz")
+        fn = lpips_fn(load_weights(path))
+        with torch.no_grad():
+            img = render(params, ev.cameras[0], background=bg, **rk).image
+        gt = ev.images[0].float() / 255.0
+        here = float(fn(img, gt))
+        t0 = time.perf_counter()
+        cpu = float(fn(img.cpu(), gt.cpu()))
+        cpu_s = time.perf_counter() - t0
+        rel = abs(here - cpu) / abs(cpu)
+        if not (cpu > 0 and rel <= 1e-4):
+            raise AssertionError(f"(d) LPIPS {here} against {cpu} on the CPU "
+                                 f"(relative {rel:.3g})")
+        ms = time_ms(lambda: fn(img, gt), device, 5)
+        plain = evaluate(params, ev, background=bg, render_kwargs=rk)
+        old = os.environ.get("DIVSHOT_LPIPS_WEIGHTS")
+        os.environ["DIVSHOT_LPIPS_WEIGHTS"] = path
+        try:
+            out = evaluate(params, ev, background=bg, render_kwargs=rk)
+        finally:
+            if old is None:
+                os.environ.pop("DIVSHOT_LPIPS_WEIGHTS")
+            else:
+                os.environ["DIVSHOT_LPIPS_WEIGHTS"] = old
+    if "lpips" not in out or not math.isfinite(out["lpips"]):
+        raise AssertionError(f"(d) evaluate reported no LPIPS: {out}")
+    n = out["n_views"]
+    extra = (n / out["views_per_s"] - n / plain["views_per_s"]) * 1e3 / n
+    h, w = img.shape[:2]
+    log(f"  (d) LPIPS at {w}x{h}: {here:.6f} on {device.type}, {cpu:.6f} on "
+        f"the CPU (relative {rel:.3g}; the CPU took {cpu_s:.2f} s); "
+        f"{ms:.3f} ms a view pair; evaluate over {n} views: lpips "
+        f"{out['lpips']:.6f}, {out['views_per_s']:.1f} views/s against "
+        f"{plain['views_per_s']:.1f} without (+{extra:.3f} ms a view)")
+    return {"lpips_ms": ms, "lpips_rel_err": rel,
+            "eval_lpips_ms_per_view": extra}
+
+
+def phase_session(device: torch.device, scale: Scale) -> list[dict]:
+    """Phase 9, the live-training session on the card: (a) the demo
+    session with the live viewer polled over HTTP; (b) its controls, as
+    3DGS, as exact 2DGS (``model_type`` 1) and streamed; (c) the dataset
+    through the session; (d) LPIPS."""
+    t0 = time.perf_counter()
+    recs, live = session_live(device, scale)
+    log(f"  (a) done in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    ds = live.trainer.dataset
+    live.close()
+    s3, _ = session_control("3dgs", ds, device, scale)
+    s3.close()
+    s2, launches = session_control("2dgs", ds, device, scale,
+                                   kernels=SURFEL_KERNELS, model_type=1)
+    w = ds.cameras[0].width
+    recs += trainer_records(f"session_2dgs_{w}", s2.trainer, device, scale,
+                            launches, s2.current_iteration)
+    s2.close()
+    host = ds.images.cpu().numpy()
+    streamed = Dataset.from_views(ds.cameras, host, stream=True)
+    ss, _ = session_control("streamed", streamed, device, scale)
+    ss.close()
+    log(f"  (b) done in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    data_sess, params = session_dataset(device, scale)
+    log(f"  (c) done in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    lp = session_lpips(data_sess, params, device, scale)
+    data_sess.close()
+    log(f"  (d) done in {time.perf_counter() - t0:.2f} s")
+    for r in recs:
+        r.update(lp)
+    return recs
+
+
+# --------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -2341,6 +2818,7 @@ def main() -> int:
     records += run("6 2DGS training path", phase_training_2dgs)
     records += run("7 dataset path", phase_dataset)
     records += run("8 the trainer's options", phase_options)
+    records += run("9 the live-training session", phase_session)
     drop_bricks()
     log(f"all phases ok in {time.perf_counter() - t_all:.2f} s")
     print(json.dumps({"kernels": records}))

@@ -197,9 +197,11 @@ def run(argv=None, callback=None, max_steps: int | None = None):
             else "pallas",
             "instance_capacity": trainer.instance_capacity,
             "antialiased": cfg.raster.mip_antialiased})
-        eval_curve.append({"step": step, "psnr": ev["psnr"],
-                           "ssim": ev["ssim"],
-                           "num_alive": trainer.state.params.num_alive})
+        entry = {"step": step, "psnr": ev["psnr"], "ssim": ev["ssim"],
+                 "num_alive": trainer.state.params.num_alive}
+        if "lpips" in ev:
+            entry["lpips"] = ev["lpips"]
+        eval_curve.append(entry)
         metrics_csv.write(step, {"eval_psnr": ev["psnr"],
                                  "eval_ssim": ev["ssim"]})
         with open(curve_path, "w") as f:

@@ -201,6 +201,21 @@ def hypers_from_config(cfg: TrainConfig) -> dict[str, float]:
     }
 
 
+def _structure_key(cfg: TrainConfig) -> TrainConfig:
+    """The part of the config the step functions are built from: all of it
+    but the live hypers (``hypers_from_config``, passed to every step).
+    Loss weights that switch extra work on keep only their > 0 bit."""
+    o = dataclasses.replace(cfg.optim, pos_lr_init=0.0, pos_lr_final=0.0,
+                            scaling_lr=0.0, rotation_lr=0.0, opacity_lr=0.0,
+                            feature_lr=0.0)
+    d = dataclasses.replace(cfg.densify, noise_lr=0.0, grow_grad2d=0.0)
+    return dataclasses.replace(
+        cfg, optim=o, densify=d,
+        ssim_weight=float(cfg.ssim_weight > 0),
+        normal_loss_weight=0.0,
+        dist_loss_weight=float(cfg.dist_loss_weight > 0))
+
+
 def check_supported(cfg: TrainConfig, dataset: Dataset | None = None,
                     *, grad_psum_axis: str | None = None) -> None:
     """Raise ``NotImplementedError`` for every option of the JAX trainer
@@ -608,6 +623,16 @@ class Trainer:
                                           res_scale=s,
                                           streamed=self._streamed)
                        for s in (1, *self._schedule_scales())}
+
+    def apply_config(self, new_cfg: TrainConfig) -> None:
+        """Apply a (possibly live-updated) config. A change of the hypers
+        alone (learning rates, loss weights) reaches the next step through
+        ``hypers``; any other change rebuilds the step functions."""
+        rebuild = _structure_key(new_cfg) != _structure_key(self.cfg)
+        self.cfg = new_cfg
+        self._hypers = hypers_from_config(new_cfg)
+        if rebuild:
+            self._build_steps()
 
     def _schedule_scales(self) -> tuple[int, ...]:
         if self.cfg.progressive_train and self.cfg.resolution_schedule > 0:

@@ -1,10 +1,12 @@
-"""The port stands alone: with JAX, flax, PIL and ``divshot_tpu`` blocked,
-every module of ``divshot_tpu_torch`` imports and ``chip_smoke.py``'s
-kernel (with the backward kernels' unit split), viewer-path, training-path,
-2DGS training-path, dataset-path and trainer-options phases run on the CPU
-at a tiny scale, with a ``kernels`` record for every kernel. Also checks on
-the port's files: no JAX or ``divshot_tpu`` import outside docstrings, no
-file over 200 KB, and the kernel build directory ignored by git."""
+"""The port stands alone: with JAX, flax, PIL, imageio and ``divshot_tpu``
+blocked, every module of ``divshot_tpu_torch`` imports and
+``chip_smoke.py``'s kernel (with the backward kernels' unit split),
+viewer-path, training-path, 2DGS training-path, dataset-path,
+trainer-options and live-session phases run on the CPU at a tiny scale,
+with a ``kernels`` record for every kernel. Also checks on the port's
+files: no JAX, flax, PIL, imageio or ``divshot_tpu`` import outside
+docstrings, no file over 200 KB, and the kernel build directory ignored by
+git."""
 
 import ast
 import os
@@ -15,7 +17,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "divshot_tpu_torch"
-BLOCKED = ("jax", "jaxlib", "flax", "PIL", "divshot_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "PIL", "imageio", "divshot_tpu")
 
 _BLOCKED_RUN = r"""
 import contextlib, importlib, io, pkgutil, sys
@@ -38,6 +40,7 @@ with contextlib.redirect_stdout(buf):
     train2d = chip_smoke.phase_training_2dgs(dev, chip_smoke.TINY)
     data = chip_smoke.phase_dataset(dev, chip_smoke.TINY)
     opts = chip_smoke.phase_options(dev, chip_smoke.TINY)
+    live = chip_smoke.phase_session(dev, chip_smoke.TINY)
     chip_smoke.drop_bricks()
 out = buf.getvalue()
 assert '"ok"' not in out, out
@@ -89,7 +92,22 @@ assert "resumed from iteration_6" in out
 assert "checkpoint bitwise, PLY float32 equal to the bf16 shN" in out
 assert ("(d) a NaN mean after step 1 raised, as expected" in out
         and "at the projection stage" in out)
-for r in records + train + train2d + data + opts:
+assert [(r["scene"], r["name"]) for r in live] == [
+    ("session_32", k) for k in ("expand", "forward", "backward")] + [
+    ("session_2dgs_32", k) for k in ("expand", "surfel_forward",
+                                     "surfel_backward")]
+assert all(r["it_per_s"] > 0 and r["snapshot_ms"] > 0 and r["lpips_ms"] > 0
+           and r["demand"] > 0 and r["instance_capacity"] == 1 << 20
+           for r in live[:3])
+for label in ("3dgs", "2dgs", "streamed"):
+    assert (f"(b) {label}: the pause held 0.5 s, pos_lr_init kept the "
+            f"steps, ssim_weight 0 rebuilt them") in out
+assert "payloads equal to splat_bytes of their snapshot" in out
+assert "apps.viewer: training done at iteration 2" in out
+assert "the saved PLY bitwise the snapshot and rendered bitwise" in out
+assert "bare PNGs without COLMAP ended in Loading_Failed" in out
+assert "(d) LPIPS at 32x32" in out and "evaluate over 2 views: lpips" in out
+for r in records + train + train2d + data + opts + live:
     assert keys <= set(r), r
     assert r["route"] == "cuda" and r["library_ms"] is None
     assert r["max_abs_err"] == 0.0 and r["bound_ms"] > 0
@@ -152,8 +170,8 @@ def _code_without_docstrings(path: Path) -> str:
 
 
 def test_port_imports_no_jax_or_reference():
-    pattern = re.compile(r"\bimport\s+(jax|flax|PIL)\b|\bfrom\s+(jax|flax|PIL)"
-                         r"\b|\bdivshot_tpu\.")
+    pattern = re.compile(r"\bimport\s+(jax|flax|PIL|imageio)\b|\bfrom\s+"
+                         r"(jax|flax|PIL|imageio)\b|\bdivshot_tpu\.")
     modules = [p for p in _port_files()
                if p.suffix == ".py" and not p.name.startswith("test_")]
     assert len(modules) >= 24

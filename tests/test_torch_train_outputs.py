@@ -96,15 +96,32 @@ def test_evaluate_matches_jax(white):
     assert sub["per_view_psnr"] == out["per_view_psnr"][:2]
 
 
-def test_evaluate_refuses_lpips_weights_it_cannot_use(monkeypatch):
+def test_evaluate_refuses_lpips_weights_it_cannot_use(monkeypatch,
+                                                     tmp_path):
+    """No LPIPS without weights, or with a path that names no file (as in
+    JAX); with weights, the mean of ``lpips_fn`` over the rendered
+    views."""
+    from divshot_tpu_torch.raster.render import render
+    from divshot_tpu_torch.train.lpips import (load_weights, lpips_fn,
+                                               random_weights)
     rng = np.random.default_rng(0)
     params = random_scene(rng, 50, device=CPU)
-    cams = orbit_cameras(1, width=16, device=CPU)
-    ds = Dataset.from_views(cams, np.zeros((1, 16, 16, 3), np.uint8))
+    cams = orbit_cameras(2, width=16, device=CPU)
+    gt = rng.integers(0, 256, (2, 16, 16, 3), dtype=np.uint8)
+    ds = Dataset.from_views(cams, gt)
+    monkeypatch.delenv("DIVSHOT_LPIPS_WEIGHTS", raising=False)
     assert "lpips" not in evaluate(params, ds)
-    monkeypatch.setenv("DIVSHOT_LPIPS_WEIGHTS", "weights.npz")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        evaluate(params, ds)
+    monkeypatch.setenv("DIVSHOT_LPIPS_WEIGHTS", str(tmp_path / "none.npz"))
+    assert "lpips" not in evaluate(params, ds)
+    path = random_weights(str(tmp_path / "w.npz"), seed=1)
+    monkeypatch.setenv("DIVSHOT_LPIPS_WEIGHTS", path)
+    out = evaluate(params, ds)
+    fn = lpips_fn(load_weights(path))
+    with torch.no_grad():
+        want = [float(fn(render(params, c).image, torch.from_numpy(g) / 255.0))
+                for c, g in zip(cams, gt)]
+    assert out["lpips"] == pytest.approx(np.mean(want), rel=1e-6)
+    assert out["lpips"] > 0
 
 
 def test_surfel_eval_ignores_third_scale_axis():
