@@ -66,7 +66,7 @@ Phases, each a function of ``(device, scale)``:
    rendered against the final params (bitwise) and the eval PSNR rising;
    it counts the launches of the resumed run and holds the three kernels
    against their plain versions on its trained state;
-8. the trainer's options: (a) phase 5(b)'s train cell, warm-up then 10
+8. the trainer's options: (a) phase 5(b)'s train cell, warm-up then 6
    steps timed with CUDA events, with batches of 4 views (4 launches of
    each kernel a step, views/s), the envmap with masks made at run time
    (the left half out), 1/4, 1/2 and full resolution (200x200, 400x400,
@@ -77,7 +77,7 @@ Phases, each a function of ``(device, scale)``:
    as exact 2DGS with batches of 2, the envmap and masks; (c) ``apps.train
    --source_path`` on phase 7's scene with ``--use_mask 1`` (masks from
    the PNGs' alpha) ``--enable_bg 1 --progressive_train 1
-   --resolution_schedule 40 --pack_level 1``, 60 of 150 steps with a
+   --resolution_schedule 25 --pack_level 1``, 40 of 100 steps with a
    checkpoint mid-way, then resumed to the end (the checkpoint bitwise,
    the envmap and bf16 ``shN`` included, the resumed scale, the eval PSNR
    rising, the PLY float32 and equal to the bf16 ``shN``); (d) ``--debug_nan
@@ -90,12 +90,12 @@ Phases, each a function of ``(device, scale)``:
    ``apps/viewer.py``): (a) ``apps.viewer``'s demo session (20K
    ground-truth splats, 32 orbit views at 400 px, 100K random splats in
    the default 2M capacity, the session's fixed instance capacity of
-   2^20) trained 300 steps on its thread with a snapshot every 100, while
+   2^20) trained 150 steps on its thread with a snapshot every 50, while
    this thread polls ``/status`` and ``/splats`` over HTTP from a
    ``LiveViewerServer`` on port 0: the generation advances at least
    twice, each payload is ``splat_bytes`` of the snapshot of its
    generation with one 32-byte record per alive splat, ``?max=`` bounds
-   it, the run ends in ``Training_Done`` at 300 with no error; the
+   it, the run ends in ``Training_Done`` at 150 with no error; the
    session's it/s against the same config stepped by ``Trainer.step_once``
    in a plain loop before and after, the ms of one snapshot against a
    whole-capacity copy, the instance demand against 2^20; then
@@ -111,7 +111,33 @@ Phases, each a function of ``(device, scale)``:
    card against the CPU (1e-4 relative), its ms, and ``evaluate`` with
    ``DIVSHOT_LPIPS_WEIGHTS`` set. (a) and the 2DGS run of (b) count their
    launches and hold their kernels against their plain versions at their
-   own shapes. Any ``session.error`` fails the phase.
+   own shapes. Any ``session.error`` fails the phase;
+10. the dynamic models, every model format and the export app: (a)
+   ``tests/test_dynamic.py:40-73``'s bars through the kernels on its 48-px
+   moving scene: a ``DeformationMLP(width=64, depth=3)`` over 150 steps
+   below 0.75x, a ``HexPlaneField(32, 16, 8)`` over 300 below 0.85x, the
+   deformation time-dependent (mean |dxyz(0) - dxyz(1)| above 1e-4), one
+   launch of each kernel a step; (b) a D-NeRF-layout blender scene
+   written at run time (20K ground-truth splats moving along +x, 4 orbit
+   cameras x 8 times at 800x800, 8 test views at times between, rendered
+   through the kernels, ``time`` in every frame), then ``apps.train
+   --model_type 2 --cap_max 262144`` with an eval and a checkpoint
+   mid-way, and ``--model_type 3`` for fewer steps: the files, the final
+   checkpoint bitwise the state saved, the eval PSNR rising, one launch
+   of each kernel a step (the evals' renders add expand and forward),
+   the three kernels against their plain versions on the trained state
+   deformed to view 0's time, and each model type's it/s beside the
+   static train cell's (5(b)); (c) the repo's trained model through
+   ``apps.export`` to ``.compressed.ply``, ``.reduced.ply``, ``.splat``,
+   ``.spz`` and ``.dvsplat`` and back, each reload rendered finite
+   through ``render_fast`` with its PSNR against the float model's frame;
+   the reduced export's k-means on the card against the CPU (centres
+   within 1e-5 of each job's range, ids equal but at distance ties,
+   counted); ``apps.export --output mesh.obj`` (24 views at 512,
+   resolution 128: vertices and faces, indices in range, one launch of
+   expand and forward a view) and those two kernels against their plain
+   versions at the depth render's shapes. Each save, load and
+   extraction's ms is printed.
 
 Both compositing routes, 3DGS and surfels, go through one harness
 (``Route``, ``Frame``, ``kernel_records``, ``stage_times``). It prints
@@ -143,6 +169,7 @@ import numpy as np
 import torch
 
 from divshot_tpu_torch import _build
+from divshot_tpu_torch.apps import export as export_app
 from divshot_tpu_torch.apps import train as train_app
 from divshot_tpu_torch.apps import viewer as viewer_app
 from divshot_tpu_torch.apps.render import orbit_for_model, render_orbit
@@ -150,12 +177,15 @@ from divshot_tpu_torch.core.config import DensifyStrategy, TrainConfig
 from divshot_tpu_torch.core.metrics import TrainingStatus
 from divshot_tpu_torch.core.profiling import StepTimer, profile_scope
 from divshot_tpu_torch.gsio.datasets import load_dataset
-from divshot_tpu_torch.gsio.io import load_model
+from divshot_tpu_torch.gsio import kmeans as KM
+from divshot_tpu_torch.gsio.io import load_model, save_model
 from divshot_tpu_torch.gsio.loader import HostImageStore
 from divshot_tpu_torch.gsio.ply import load_ply, read_ply_arrays
+from divshot_tpu_torch.gsio.png import write_png
 from divshot_tpu_torch.gsio.procedural import generate_dataset
 from divshot_tpu_torch.gsio.synthetic import (orbit_cameras, random_scene,
                                               render_gt_images)
+from divshot_tpu_torch.models import dynamic as DYN
 from divshot_tpu_torch.models.background import (init_envmap,
                                                  render_background)
 from divshot_tpu_torch.raster import bin as B
@@ -369,18 +399,29 @@ class Scale:
     session_iters: tuple  # session's steps, snapshot_every, the plain
     #                       loop's steps, the steps between two controls,
     #                       the viewer app's steps, the dataset session's)
+    dyn_bars: tuple       # phase 10: (a)'s (resolution, times, MLP steps,
+    #                       HexPlane steps); (b)'s scene (ground-truth
+    dyn_scene: tuple      # splats, resolution, cameras, times, test
+    #                       views) and its runs (model_type 2 steps,
+    dyn_runs: tuple       # model_type 3 steps, cap_max); (c)'s (frame
+    export: tuple         # size, mesh views, mesh resolution, the CPU
+    #                       k-means check's values a job)
 
 
-FULL = Scale(1920, 1080, 4, 1, 1_000_000, 1 << 24, 50_000, 512, 10,
-             150, 50_000, 100_000, 1 << 17, 800, 4, 30, 20, 60,
-             800, (24, 8), 262_144, 300, 200, (100, 100, 50),
-             10, 4, (150, 60, 40, 50, 30, 20), 5,
-             (20_000, 32, 400, 0), (300, 100, 30, 3, 20, 100))
+FULL = Scale(1920, 1080, 4, 1, 1_000_000, 1 << 24, 50_000, 512, 6,
+             150, 50_000, 100_000, 1 << 17, 800, 4, 30, 12, 60,
+             800, (24, 8), 262_144, 200, 100, (50, 50, 25),
+             6, 4, (100, 40, 25, 50, 20, 10), 5,
+             (20_000, 32, 400, 0), (150, 50, 15, 3, 20, 100),
+             (48, 5, 150, 300), (20_000, 800, 4, 8, 8), (60, 30, 262_144),
+             (800, 24, 128, 1 << 13))
 TINY = Scale(64, 48, 1, 512, 1_500, 1 << 16, 400, 64, 1,
              3, 300, 500, 1 << 10, 64, 2, 2, 0, 3,
              32, (3, 2), 1024, 12, 8, (4, 4, 3),
              2, 2, (12, 6, 3, 4, 3, 2), 3,
-             (300, 2, 32, 1024), (12, 3, 2, 2, 2, 3))
+             (300, 2, 32, 1024), (12, 3, 2, 2, 2, 3),
+             (32, 2, 3, 3), (300, 32, 2, 2, 2), (4, 2, 1024),
+             (32, 2, 12, 1 << 10))
 
 
 def log(msg: str) -> None:
@@ -2796,6 +2837,469 @@ def phase_session(device: torch.device, scale: Scale) -> list[dict]:
 
 
 # --------------------------------------------------------------------------
+# phase 10: the dynamic models, every model format and the export app with
+# mesh extraction
+
+DYN_KERNELS = TRAIN_KERNELS
+
+
+def dyn_setup(device: torch.device, rng, res: int, n_times: int):
+    """``tests/test_dynamic.py:19-40``'s moving scene through the port:
+    300 ground-truth splats moved 0.6 along +x over the times, 4 orbit
+    views at each, the model starting near the scene at t = 0."""
+    gt = random_scene(rng, 300, sh_degree=0, device=device)
+    base = orbit_cameras(4, width=res, device=device)
+    cams, images, times = [], [], []
+    for ti in range(n_times):
+        t = ti / (n_times - 1)
+        moved = dataclasses.replace(gt, means=gt.means + torch.tensor(
+            [0.6 * t, 0.0, 0.0], device=device))
+        imgs = render_gt_images(moved, base, instance_capacity=1 << 14)
+        cams += base
+        images += list(imgs)
+        times += [t] * len(base)
+    ds = Dataset.from_views(cams, np.stack(images))
+    ds.times = np.asarray(times, np.float32)
+    noise = torch.as_tensor(rng.standard_normal(tuple(gt.means.shape)),
+                            dtype=torch.float32, device=device)
+    return ds, dataclasses.replace(gt, means=gt.means + 0.03 * noise)
+
+
+def dynamic_bars(device: torch.device, scale: Scale) -> list[dict]:
+    """(a) ``tests/test_dynamic.py:40-73``'s bars through the kernels: the
+    mean of the last 15 losses below 0.75x the first 15 for a
+    ``DeformationMLP(width=64, depth=3)`` over 150 steps, below 0.85x for
+    a ``HexPlaneField(32, 16, 8)`` over 300; the mean |dxyz(t=0) -
+    dxyz(t=1)| of 100 splats above 1e-4; one launch of each kernel a
+    step. The bars are checked when a run has at least 30 steps."""
+    res, n_times, mlp_iters, hex_iters = scale.dyn_bars
+    cases = (("deform", lambda: DYN.DeformationMLP(width=64, depth=3,
+                                                  device=device),
+              mlp_iters, 0.75),
+             ("hexplane", lambda: DYN.HexPlaneField(32, 16, 8,
+                                                    device=device),
+              hex_iters, 0.85))
+    records = []
+    for name, make, iters, bar in cases:
+        ds, params = dyn_setup(device, np.random.default_rng(0), res,
+                               n_times)
+        cfg = TrainConfig(sh_degree=0)
+        cfg.densify.warmup_length = 20      # the deformation from step 20
+        cfg.densify.refine_every = 10_000   # no refine in a short run
+        cfg.densify.cap_max = params.capacity
+        net = make()
+        init_fn, step_fn = DYN.make_dynamic_train_step(
+            cfg, ds, net, render_kwargs={"instance_capacity": 1 << 14},
+            net_lr=2e-3)
+        state = init_fn(params, 0)
+        views = np.random.default_rng(0).integers(ds.num_views, size=iters)
+        losses = []
+
+        def run():
+            nonlocal state
+            for v in views:
+                state, m = step_fn(state, int(v))
+                losses.append(m["loss"])
+
+        t0 = time.perf_counter()
+        _, launches = count_launches(run, device, iters, f"(a) {name}",
+                                     kernels=DYN_KERNELS)
+        dt = time.perf_counter() - t0
+        losses = torch.stack(losses).cpu().numpy()
+        with torch.no_grad():
+            m100 = state.params.means[:100]
+            diff = float((net(m100, 0.0)["dxyz"]
+                          - net(m100, 1.0)["dxyz"]).abs().mean())
+        first, last = float(losses[:15].mean()), float(losses[-15:].mean())
+        log(f"  (a) {name}: {iters} steps at {res}x{res} in {dt:.2f} s "
+            f"({iters / dt:.1f} it/s), loss first-15 {first:.5f} last-15 "
+            f"{last:.5f} (ratio {last / first:.4f}, bar {bar}), "
+            f"|dxyz(0) - dxyz(1)| {diff:.3e} (bar 1e-4)")
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"(a) {name}: non-finite loss")
+        if device.type == "cuda" and any(launches[k] != iters
+                                         for k in DYN_KERNELS):
+            raise AssertionError(f"(a) {name}: launches {launches}, not "
+                                 f"one of each a step")
+        if iters >= 30 and not (last < bar * first and diff > 1e-4):
+            raise AssertionError(f"(a) {name}: ratio {last / first:.4f} "
+                                 f"(bar {bar}), time dependence {diff}")
+        with torch.no_grad():
+            fr_params = DYN.apply_deformation(state.params, net(
+                state.params.means, float(ds.times[0])))
+        recs = dyn_records(f"dyn_bars_{name}_{res}", fr_params, ds, cfg,
+                           state.step, 1 << 14, device, scale, launches,
+                           iters)
+        for r in recs:
+            r.update(loss_ratio=last / first, bar=bar, time_dependence=diff,
+                     it_per_s=iters / dt)
+        records += recs
+    return records
+
+
+def dyn_records(scene: str, params: GaussianParams, ds: Dataset, cfg,
+                step: int, icap: int, device: torch.device, scale: Scale,
+                launches: dict, steps: int) -> list[dict]:
+    """The three kernels against their plain versions on view 0 of a
+    dynamic dataset, at the splats deformed to its time, with the
+    cotangent of the step's loss and its AbsGS setting."""
+    fr = make_frame(params, ds.cameras[0], icap)
+    cot = loss_cotangent(fr, train_loss(cfg, ds.images[0], fr.cam, step))
+    rk = render_kwargs_from_config(cfg)
+    return kernel_records(scene, fr, device, scale, launches, cot=cot,
+                          per_step=steps, with_absgrad=rk["with_absgrad"])
+
+
+def dnerf_scene(device: torch.device, scale: Scale, root: str) -> float:
+    """(b) A D-NeRF-layout blender scene written at run time into
+    ``root``: ground-truth splats (SH 3) moving 0.5 along +x over the
+    times, ``cameras`` orbit views at each of ``times`` times for training
+    and ``test`` more orbit views at times between, rendered through the
+    kernels and written with ``gsio/png.write_png``, a ``time`` in every
+    frame -> the seconds it took."""
+    n_gt, res, n_cams, n_times, n_test = scale.dyn_scene
+    t0 = time.perf_counter()
+    gt = random_scene(np.random.default_rng(0), n_gt, sh_degree=3,
+                      scale_range=(0.004, 0.03), device=device)
+    fov = 50.0
+    train = [(c, ti / (n_times - 1)) for ti in range(n_times)
+             for c in orbit_cameras(n_cams, width=res, fov_y_deg=fov,
+                                    device=device)]
+    test_cams = orbit_cameras(2 * n_test, width=res, fov_y_deg=fov,
+                              device=device)[1::2]
+    test = [(c, (k + 0.5) / n_test) for k, c in enumerate(test_cams)]
+    for split, views in (("train", train), ("test", test)):
+        os.makedirs(f"{root}/{split}")
+        frames = []
+        for k, (cam, t) in enumerate(views):
+            moved = dataclasses.replace(gt, means=gt.means + torch.tensor(
+                [0.5 * t, 0.0, 0.0], device=device))
+            img = render_gt_images(moved, [cam],
+                                   instance_capacity=1 << 21)[0]
+            write_png(f"{root}/{split}/r_{k}.png", img)
+            w2c = np.eye(4)
+            w2c[:3, :4] = cam.viewmat[:3, :4]
+            c2w = np.linalg.inv(w2c)
+            c2w[:3, 1:3] *= -1.0            # COLMAP -> OpenGL axes
+            frames.append({"file_path": f"./{split}/r_{k}", "time": t,
+                           "transform_matrix": c2w.tolist()})
+        with open(f"{root}/transforms_{split}.json", "w") as f:
+            json.dump({"camera_angle_x": math.radians(fov),
+                       "frames": frames}, f)
+    return time.perf_counter() - t0
+
+
+def _same_dynamic_state(a: dict, b: dict, what: str) -> None:
+    """Two ``checkpoint.dynamic_state_dict``s bitwise equal."""
+    _same_state(a, b, what)
+    for k, t in a["net"].items():
+        if not torch.equal(t, b["net"][k]):
+            raise AssertionError(f"{what}: net.{k} differs")
+    for m in ("mu", "nu"):
+        for k, t in a["net_opt"][m].items():
+            if not torch.equal(t, b["net_opt"][m][k]):
+                raise AssertionError(f"{what}: net_opt.{m}.{k} differs")
+    if a["net_opt"]["count"] != b["net_opt"]["count"]:
+        raise AssertionError(f"{what}: the network's Adam count differs")
+
+
+def dynamic_app(device: torch.device, scale: Scale) -> list[dict]:
+    """(b) ``apps.train --source_path <the D-NeRF scene> --model_type 2
+    --cap_max 262144`` with an eval and a checkpoint mid-way (the
+    networks at their defaults), then ``--model_type 3`` for fewer steps.
+    Checks: the files, the final checkpoint read back bitwise equal to the
+    state saved, the eval PSNR rising, one launch of each kernel a step
+    (the evals' renders add expand and forward only), the three kernels
+    against their plain versions on the trained state."""
+    n_gt, res, n_cams, n_times, n_test = scale.dyn_scene
+    steps2, steps3, cap = scale.dyn_runs
+    records, its = [], {}
+    scene = tempfile.TemporaryDirectory()
+    data = f"{scene.name}/dnerf"
+    gen_s = dnerf_scene(device, scale, data)
+    for model_type, steps, label in ((2, steps2, "deform"),
+                                     (3, steps3, "hexplane")):
+        half = max(1, steps // 2)
+        with tempfile.TemporaryDirectory() as tmp:
+            model = f"{tmp}/model"
+            argv = ["--source_path", data, "--model_path", model,
+                    "--device", device.type, "--model_type",
+                    str(model_type), "--cap_max", str(cap), "--iterations",
+                    str(steps), "--eval_every", str(half),
+                    "--checkpoint_every", str(half)]
+            tr, launches, out = _app_run(
+                argv, device, f"(b) apps.train --model_type {model_type}",
+                steps)
+            for name in ("eval_curve.json", "point_cloud.ply",
+                         f"iteration_{half}/state.pt",
+                         f"iteration_{steps}/state.pt"):
+                if not Path(model, name).exists():
+                    raise AssertionError(f"(b) {label}: {name} was not "
+                                         f"written")
+            _same_dynamic_state(
+                CK.load_state_dict(model, steps),
+                CK.dynamic_state_dict(tr.state, tr._np_rng,
+                                      tr.instance_capacity),
+                f"(b) {label} iteration_{steps}")
+            curve = json.loads(Path(model, "eval_curve.json").read_text())
+        psnrs = [e["psnr"] for e in curve]
+        renders = n_test * len(curve)
+        if not all(math.isfinite(x) for x in psnrs):
+            raise AssertionError(f"(b) {label}: eval PSNR {psnrs}")
+        if steps >= 30 and not psnrs[-1] > psnrs[0]:
+            raise AssertionError(f"(b) {label}: eval PSNR did not rise "
+                                 f"{psnrs}")
+        want = {"expand": steps + renders, "forward": steps + renders,
+                "backward": steps}
+        if device.type == "cuda" and any(launches[k] != n
+                                         for k, n in want.items()):
+            raise AssertionError(f"(b) {label}: launches {launches}, want "
+                                 f"{want}")
+        its[label] = [float(ln.split("(")[1].split()[0])
+                      for ln in out.splitlines()
+                      if ln.startswith("trained ")][0]
+        log(f"  (b) {label}: {steps} steps on {n_cams * n_times} views at "
+            f"{res}x{res} with {n_test} test views, capacity {cap}: "
+            f"{its[label]:.2f} it/s; eval PSNR "
+            + ", ".join(f"{e['step']}: {e['psnr']:.3f}" for e in curve)
+            + f"; checkpoint bitwise equal to the state saved; launches "
+            f"{launches} ({steps} steps, {renders} eval renders)")
+        ds = tr.dataset
+        params = tr.deformed_params(float(ds.times[0]))
+        recs = dyn_records(f"dyn_{label}_{res}", params, ds, tr.cfg,
+                           tr.state.step, tr.instance_capacity, device,
+                           scale, launches, steps)
+        for r in recs:
+            r.update(it_per_s=its[label], eval_psnr=psnrs[-1],
+                     gen_s=gen_s)
+        records += recs
+    scene.cleanup()
+    log(f"  (b) dynamic it/s at {res}x{res}: deform {its['deform']:.2f}, "
+        f"hexplane {its['hexplane']:.2f}; the scene written in "
+        f"{gen_s:.2f} s")
+    return records
+
+
+FORMATS = (".compressed.ply", ".reduced.ply", ".splat", ".spz", ".dvsplat")
+
+
+def _psnr(a: torch.Tensor, b: torch.Tensor) -> float:
+    mse = float(((a.clamp(0, 1) - b.clamp(0, 1)) ** 2).mean())
+    return -10.0 * math.log10(max(mse, 1e-10))
+
+
+def kmeans_check(d: dict, device: torch.device, n_vals: int) -> dict:
+    """The reduced export's codebooks: all 20 jobs of ``make_codebooks`` on
+    the card, timed; then, on the first ``n_vals`` values of every job,
+    the card's Lloyd iterations held step by step against the CPU's on the
+    card's own state: the same quantile init (bitwise), each assignment
+    equal but at exact distance ties (counted), each centre update within
+    1e-5 of the job's range (the card's atomics add in another order).
+    Also the two devices' independent runs end to end, whose discrete
+    steps amplify that order: their centres' largest difference and the
+    ids that differ, reported."""
+    t0 = time.perf_counter()
+    KM.make_codebooks(d, device=device)
+    sync(device)
+    card_ms = (time.perf_counter() - t0) * 1e3
+    worst = ties = n_all = flips = 0
+    end_to_end, cpu_s, dev_s = 0.0, 0.0, 0.0
+    for name, vals in KM.codebook_jobs(d).items():
+        v = torch.as_tensor(np.asarray(vals[:n_vals], np.float32))
+        vd = v.to(device)
+        rng = max(float(v.max() - v.min()), 1e-12)
+        c = KM.kmeans_init(vd, 256)
+        if not torch.equal(c.cpu(), KM.kmeans_init(v, 256)):
+            raise AssertionError(f"k-means {name}: the initial centres")
+        for it in range(11):
+            ids = KM.kmeans_assign(vd, c).cpu()
+            c_host = c.cpu()
+            ref = KM.kmeans_assign(v, c_host)
+            diff = ids != ref
+            if bool(diff.any()):
+                dc = (v[diff] - c_host[ref[diff]]).abs()
+                dd = (v[diff] - c_host[ids[diff]]).abs()
+                if not torch.equal(dc, dd):
+                    raise AssertionError(f"k-means {name}: step {it}'s ids "
+                                         f"differ away from a tie")
+                ties += int(diff.sum())
+            if it == 10:
+                break
+            c = KM.kmeans_update(vd, ids.to(device), c)
+            up = KM.kmeans_update(v, ids, c_host)
+            worst = max(worst, float((c.cpu() - up).abs().max()) / rng)
+        t0 = time.perf_counter()
+        cc, ic = KM.kmeans_1d(v)
+        cpu_s += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cd, idv = KM.kmeans_1d(vd)
+        sync(device)
+        dev_s += time.perf_counter() - t0
+        end_to_end = max(end_to_end, float((cd.cpu() - cc).abs().max())
+                         / rng)
+        flips += int((idv.cpu() != ic).sum())
+        n_all += v.numel()
+    if worst > 1e-5:
+        raise AssertionError(f"k-means: a centre update differs by "
+                             f"{worst:.3e} of the range")
+    return dict(kmeans_card_ms=card_ms, kmeans_check_cpu_ms=cpu_s * 1e3,
+                kmeans_check_card_ms=dev_s * 1e3, kmeans_update_rel=worst,
+                kmeans_id_ties=ties, kmeans_values=n_all,
+                kmeans_end_to_end_rel=end_to_end, kmeans_end_to_end_ids=flips)
+
+
+def export_formats(device: torch.device, scale: Scale) -> tuple[list, dict]:
+    """(c) The repo's trained model through ``apps.export`` to every
+    format and back; each reload rendered through ``render_fast`` (finite,
+    its PSNR against the float model's frame); the reduced export's
+    k-means on the card against the CPU; then ``apps.export --output
+    mesh.obj`` (its launches of expand and forward counted, one each a
+    view) and its kernels against their plain versions at the depth
+    render's shapes."""
+    width, views, mesh_res, n_vals = scale.export
+    params = _load(MODEL, device, scale)
+    n = params.num_alive
+    cam = orbit_for_model(params, 1, radius=4.0, width=width, height=width,
+                          fov=50.0)[0]
+    bg = torch.zeros((3,), device=device)
+    icap = 1 << 23 if device.type == "cuda" else 1 << 16
+    ref = render_fast(params, cam, background=bg, instance_capacity=icap)[0]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        src = str(MODEL)
+        if scale.model_stride > 1:
+            src = f"{tmp}/model.ply"
+            save_model(src, params)
+        t0 = time.perf_counter()
+        load_model(src, device=device)
+        sync(device)
+        out["ply_load_ms"] = (time.perf_counter() - t0) * 1e3
+        parts = []
+        for ext in FORMATS:
+            dst = f"{tmp}/model{ext}"
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = export_app.main(["--input", src, "--output", dst,
+                                      "--device", device.type])
+            sync(device)
+            app_ms = (time.perf_counter() - t0) * 1e3
+            if rc != 0 or f"loaded {n} splats" not in buf.getvalue():
+                raise AssertionError(f"apps.export {ext}: {buf.getvalue()}")
+            t0 = time.perf_counter()
+            back, _ = load_model(dst, device=device)
+            sync(device)
+            load_ms = (time.perf_counter() - t0) * 1e3
+            if back.num_alive != n:
+                raise AssertionError(f"{ext}: {back.num_alive} of {n} splats")
+            img, alpha, _ = render_fast(back, cam, background=bg,
+                                        instance_capacity=icap)
+            _check_frame(img, alpha, f"{ext} reload")
+            p = _psnr(img, ref)
+            size = os.path.getsize(dst)
+            out[ext] = dict(app_ms=app_ms, load_ms=load_ms, psnr=p,
+                            bytes=size)
+            parts.append(f"{ext} app {app_ms:.1f} ms (the PLY's load "
+                         f"included), load {load_ms:.1f} ms, "
+                         f"{size / 1e6:.2f} MB, PSNR {p:.2f} dB")
+        log(f"  (c) {n} splats of {MODEL.parent.name} exported and read "
+            f"back, rendered at {width}x{width} against the float model "
+            f"(its PLY read in {out['ply_load_ms']:.1f} ms): "
+            + "; ".join(parts))
+        km = kmeans_check(params.compact_numpy(), device, n_vals)
+        log(f"  (c) reduced export's k-means: 20 codebooks on the "
+            f"{device.type} in {km['kmeans_card_ms']:.1f} ms; on "
+            f"{km['kmeans_values']} values (the first {n_vals} of each "
+            f"job), step by step against the CPU: the init bitwise, the "
+            f"ids equal but at {km['kmeans_id_ties']} exact ties, each "
+            f"centre update within {km['kmeans_update_rel']:.2e} of its "
+            f"job's range; end to end the {device.type} "
+            f"{km['kmeans_check_card_ms']:.1f} ms and the CPU "
+            f"{km['kmeans_check_cpu_ms']:.1f} ms, centres apart by up to "
+            f"{km['kmeans_end_to_end_rel']:.2e} of the range, "
+            f"{km['kmeans_end_to_end_ids']} ids differing")
+        mesh = f"{tmp}/mesh.obj"
+        buf = io.StringIO()
+
+        def extract():
+            with contextlib.redirect_stdout(buf):
+                return export_app.main([
+                    "--input", src, "--output", mesh, "--views", str(views),
+                    "--mesh_resolution", str(mesh_res), "--device",
+                    device.type])
+
+        t0 = time.perf_counter()
+        rc, launches = count_launches(extract, device, None,
+                                      "(c) apps.export --output mesh.obj",
+                                      only_steps=False,
+                                      kernels=VIEWER_KERNELS)
+        mesh_ms = (time.perf_counter() - t0) * 1e3
+        verts, faces = [], []
+        for line in open(mesh):
+            if line.startswith("v "):
+                verts.append(line)
+            elif line.startswith("f "):
+                faces.append([int(x) for x in line.split()[1:]])
+        faces = np.asarray(faces)
+    # the tiny rehearsal's sparse model (every 512th splat) leaves no
+    # surface at two views: non-empty is required from 8 views up
+    empty = not verts or not len(faces)
+    if rc != 0 or (empty and views >= 8) or (not empty and (
+            faces.min() < 1 or faces.max() > len(verts))):
+        raise AssertionError(f"mesh.obj: {len(verts)} vertices, "
+                             f"{len(faces)} faces")
+    if device.type == "cuda" and any(launches[k] != views
+                                     for k in VIEWER_KERNELS):
+        raise AssertionError(f"mesh: launches {launches}, want {views} each")
+    log(f"  (c) mesh: {views} views at 512, resolution {mesh_res}: "
+        f"{len(verts)} vertices, {len(faces)} faces in {mesh_ms:.1f} ms; "
+        f"{buf.getvalue().strip().splitlines()[-1]}")
+    out.update(km, mesh_ms=mesh_ms, mesh_vertices=len(verts),
+               mesh_faces=len(faces))
+    # the depth render's frame: view 0 of the app's orbit, depth as colour
+    d = params.compact_numpy()
+    extent = float(np.abs(d["means"] - d["means"].mean(0)).max())
+    mcam = orbit_cameras(views, radius=max(2.5 * extent, 1.0), width=512,
+                         device=device)[0]
+    fr = make_frame(params, mcam, 1 << 20, route=DEPTH)
+    recs = kernel_records(f"mesh_depth_{MODEL.parent.name}", fr, device,
+                          scale, launches)
+    return recs, out
+
+
+def _depth_inputs(params, cam, geometry):
+    """A frame's inputs with the camera-space depth as its colour, as
+    ``viewer/mesh.render_depth`` composites it."""
+    proj, _, opac = frame_inputs(params, cam)
+    R, t = cam.rotation, cam.translation
+    m = params.means
+    z = R[2][0] * m[:, 0] + R[2][1] * m[:, 1] + R[2][2] * m[:, 2] + t[2]
+    return proj, torch.stack([z, z, z], -1), opac
+
+
+DEPTH = dataclasses.replace(GAUSS, inputs=_depth_inputs)
+
+
+def phase_dynamic_export(device: torch.device, scale: Scale) -> list[dict]:
+    """Phase 10: (a) the dynamic bars, (b) the dynamic models through the
+    train app at full width, (c) every format and the mesh through the
+    export app."""
+    t0 = time.perf_counter()
+    records = dynamic_bars(device, scale)
+    log(f"  (a) done in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    records += dynamic_app(device, scale)
+    log(f"  (b) done in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    recs, out = export_formats(device, scale)
+    for r in recs:
+        r.update(export=out)
+    records += recs
+    log(f"  (c) done in {time.perf_counter() - t0:.2f} s")
+    return records
+
+
+# --------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -2820,6 +3324,16 @@ def main() -> int:
     records += run("8 the trainer's options", phase_options)
     records += run("9 the live-training session", phase_session)
     drop_bricks()
+    dyn = run("10 dynamic models, formats and export", phase_dynamic_export)
+    static = next(r["it_per_s"] for r in records
+                  if r["scene"].startswith("train_") and "it_per_s" in r)
+    log("phase 10(b) dynamic it/s against the static train cell (5(b), "
+        f"100K splats at 800x800, {static:.2f} it/s): " + ", ".join(
+            f"{r['scene']} {r['it_per_s']:.2f} ({r['it_per_s'] / static:.2f}"
+            "x)" for r in dyn
+            if r["name"] == "backward" and r["scene"].startswith("dyn_")
+            and not r["scene"].startswith("dyn_bars")))
+    records += dyn
     log(f"all phases ok in {time.perf_counter() - t_all:.2f} s")
     print(json.dumps({"kernels": records}))
     print(ident["smi"] or f"{ident['kind']}, power limit not readable")

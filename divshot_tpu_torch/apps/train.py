@@ -24,9 +24,16 @@ the geometry losses, the ADC, ADC+ and MCMC strategies, and the options
 background), ``--use_mask`` (masks from a masks folder or the PNGs'
 alpha), ``--progressive_train`` with ``--resolution_schedule``,
 ``--pack_level`` and ``--debug_nan`` (``FloatingPointError`` naming the
-stage that made a NaN). As in JAX there is no batch-size flag. The flags
-of what is not ported yet (mesh export, the dynamic models) raise
-``NotImplementedError`` naming ROADMAP.md.
+stage that made a NaN). As in JAX there is no batch-size flag, and
+``--export_mesh`` / ``--mesh_resolution`` are taken and do nothing more.
+
+``--model_type 2`` (the deformation MLP) and ``3`` (the HexPlane field)
+train the dynamic models on a dataset with per-view times (the D-NeRF
+layout: ``time`` in each blender frame) through ``models/dynamic.py``,
+the kernels' route on every platform (JAX: XLA's tiles off the TPU):
+``metrics.csv``, the whole dynamic state in ``iteration_N/state.pt`` every
+``checkpoint_every`` steps and at the end, ``eval_curve.json`` at each
+test view's own time, and the canonical ``point_cloud.ply``.
 """
 
 from __future__ import annotations
@@ -45,25 +52,12 @@ DEMO_SPLATS = 20_000
 DEMO_VIEWS = 32
 DEMO_WIDTH = 400
 
-# flags of the JAX app whose features are not ported, as (config field,
-# what it needs)
-_UNPORTED_FIELDS = (
-    ("export_mesh", "mesh export"),
-    ("mesh_resolution", "mesh export"),
-)
-
-
 def check_flags(cfg) -> None:
     """Raise ``NotImplementedError`` for a flag whose feature is not
-    ported."""
-    from divshot_tpu_torch.core.config import TrainConfig
+    ported (only multi-chip training is not). ``--export_mesh`` and
+    ``--mesh_resolution`` are taken and, as in JAX's app, do nothing more
+    here."""
     from divshot_tpu_torch.train.trainer import check_supported
-    default = TrainConfig()
-    for field, what in _UNPORTED_FIELDS:
-        if getattr(cfg, field) != getattr(default, field):
-            raise NotImplementedError(
-                f"--{field}: {what} are not ported to divshot_tpu_torch "
-                f"yet (ROADMAP.md, Queue A)")
     check_supported(cfg)
 
 
@@ -148,6 +142,9 @@ def run(argv=None, callback=None, max_steps: int | None = None):
     phase.set(TrainingStatus.PREPROCESS_DONE)
     model_path = cfg.model_path or "output"
     os.makedirs(model_path, exist_ok=True)
+    if cfg.model_type in (ModelType.DEFORM, ModelType.HEXPLANE):
+        return _train_dynamic(cfg, ds, eval_ds, params, model_path, phase,
+                              callback, max_steps)
     surfel2d = cfg.model_type == ModelType.GS2D
     trainer = Trainer(cfg, ds, params)
     cam0 = ds.cameras[0]
@@ -262,6 +259,99 @@ def run(argv=None, callback=None, max_steps: int | None = None):
         print(f"final eval over {ev['n_views']} views: PSNR "
               f"{ev['psnr']:.2f} dB  SSIM {ev['ssim']:.4f} "
               f"({ev['views_per_s']:.1f} views/s)", flush=True)
+    metrics_csv.close()
+    return trainer
+
+
+def _train_dynamic(cfg, ds, eval_ds, params, model_path, phase, callback,
+                   max_steps):
+    """The dynamic models' loop (``model_type`` 2, the deformation MLP, or
+    3, the HexPlane field), JAX's ``_train_dynamic``: progress, a
+    ``metrics.csv`` row every 100 steps, the whole dynamic state saved to
+    ``iteration_N/state.pt`` every ``checkpoint_every`` steps and at the
+    end, the eval curve at each test view's own time, the canonical
+    ``point_cloud.ply``. The render route is the kernels' on every
+    platform. -> the ``DynamicTrainer``."""
+    import torch
+
+    from divshot_tpu_torch.core.metrics import MetricsWriter, TrainingStatus
+    from divshot_tpu_torch.gsio.ply import save_ply
+    from divshot_tpu_torch.models.dynamic import (DynamicTrainer,
+                                                  evaluate_dynamic)
+    from divshot_tpu_torch.train import checkpoint as CK
+
+    device = params.device
+    trainer = DynamicTrainer(cfg, ds, params)
+    phase.set(TrainingStatus.TRAINING)
+    metrics_csv = MetricsWriter(os.path.join(model_path, "metrics.csv"))
+    curve_path = os.path.join(model_path, "eval_curve.json")
+    eval_curve: list[dict] = []
+    n = cfg.num_iters if max_steps is None else max(
+        0, min(cfg.num_iters, max_steps))
+    bg = torch.ones((3,), device=device) if cfg.white_background else None
+    timer = {"eval_s": 0.0, "save_s": 0.0}
+
+    def run_eval(step):
+        if eval_ds is None or eval_ds.times is None:
+            return None
+        t = time.perf_counter()
+        ev = evaluate_dynamic(trainer.state, trainer.net, eval_ds,
+                              render_kwargs={
+                                  "instance_capacity":
+                                  trainer.instance_capacity},
+                              background=bg)
+        eval_curve.append({"step": step, **ev})
+        with open(curve_path, "w") as f:
+            json.dump(eval_curve, f, indent=1)
+        timer["eval_s"] += time.perf_counter() - t
+        return ev
+
+    def save(step):
+        t = time.perf_counter()
+        CK.save_dynamic(model_path, trainer, step=step)
+        timer["save_s"] += time.perf_counter() - t
+
+    every = max(1, min(100, n // 10))
+    t_run = time.perf_counter()
+
+    def step_done(i, state, m):
+        step = i + 1
+        if step % 100 == 0:
+            metrics_csv.write(step, m)
+        if step == 1 or step % every == 0 or step == n:
+            elapsed = time.perf_counter() - t_run - timer["eval_s"] \
+                - timer["save_s"]
+            print(f"[{step}/{cfg.num_iters}] loss={float(m['loss']):.4f} "
+                  f"psnr={float(m['psnr']):.2f} "
+                  f"alive={int(m['num_alive'])} "
+                  f"({step / elapsed:.1f} it/s)", flush=True)
+        if step % cfg.checkpoint_every == 0:
+            save(step)
+        if cfg.eval_every and step % cfg.eval_every == 0:
+            ev = run_eval(step)
+            if ev:
+                print(f"[eval @ {step}] PSNR {ev['psnr']:.2f} dB  SSIM "
+                      f"{ev['ssim']:.4f} ({ev['n_views']} views, "
+                      f"{ev['views_per_s']:.1f} views/s)", flush=True)
+        phase.progress = step / cfg.num_iters
+        if callback is not None:
+            callback(i, state, m)
+
+    trainer.run(n, callback=step_done)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    train_s = time.perf_counter() - t_run - timer["eval_s"] - timer["save_s"]
+    print(f"trained {n} steps in {train_s:.2f} s ({n / max(train_s, 1e-9):.2f}"
+          f" it/s, evals and checkpoints excluded)", flush=True)
+    phase.set(TrainingStatus.TRAINING_DONE, 1.0)
+    save(n)
+    out_ply = os.path.join(model_path, "point_cloud.ply")
+    save_ply(out_ply, trainer.state.params)
+    print(f"saved canonical {out_ply}")
+    ev = run_eval(n)
+    if ev is not None:
+        print(f"final eval over {ev['n_views']} views: PSNR "
+              f"{ev['psnr']:.2f} dB  SSIM {ev['ssim']:.4f}", flush=True)
     metrics_csv.close()
     return trainer
 

@@ -13,9 +13,10 @@ Masks (``use_mask``), as in JAX: a file of the image's stem in a
 converted to greyscale and resized nearest to the image), then the PNG's
 alpha, then keep-all; stored uint8 ``m * 255``.
 
-Not ported yet, raising ``NotImplementedError`` naming ROADMAP.md: the
-external-pose readers (nerfstudio, opensfm, realitycapture, metashape;
-``gsio/readers.py``).
+External poses (nerfstudio, OpenSfM, RealityCapture, Metashape) are read
+by ``gsio/readers.py`` and their images loaded by
+``load_external_pose_dataset``, the intrinsics rescaled to the loaded
+size.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from divshot_tpu_torch.gsio import colmap as C
 from divshot_tpu_torch.gsio.png import (read_png, resize_lanczos,
                                         resize_nearest, to_grey)
 from divshot_tpu_torch.splat.camera import Camera
-from divshot_tpu_torch.train.trainer import Dataset, _unported
+from divshot_tpu_torch.train.trainer import Dataset
 
 
 def _load_image(path: str, max_w: int, max_h: int,
@@ -190,6 +191,40 @@ def load_blender_dataset(
     return ds
 
 
+def load_external_pose_dataset(
+    cameras, paths, points, colors, *, max_width: int = 2048,
+    max_height: int = 2048, eval_holdout: int = 0, max_images: int = 0,
+    use_mask: bool = False, white_background: bool = False, device="cuda",
+) -> tuple[Dataset, Dataset | None]:
+    """The images of externally read poses (``gsio/readers.py``), each
+    camera's intrinsics rescaled to its loaded image (float32, as JAX's
+    ``Camera.replace`` computes them); a pose whose image is missing is
+    dropped."""
+    if max_images:
+        cameras, paths = cameras[:max_images], paths[:max_images]
+    out_cams, images, masks = [], [], []
+    f32 = np.float32
+    for cam, path in zip(cameras, paths):
+        if not os.path.exists(path):
+            continue
+        arr, alpha = _load_image(path, max_width, max_height,
+                                 white_bg=white_background)
+        sx = f32(arr.shape[1] / cam.width)
+        sy = f32(arr.shape[0] / cam.height)
+        out_cams.append(Camera(
+            viewmat=cam.viewmat, fx=float(f32(cam.fx) * sx),
+            fy=float(f32(cam.fy) * sy), cx=float(f32(cam.cx) * sx),
+            cy=float(f32(cam.cy) * sy), width=arr.shape[1],
+            height=arr.shape[0], device=device))
+        images.append((arr * 255).astype(np.uint8))
+        if use_mask:
+            masks.append(_mask_u8(path, alpha, arr.shape))
+    if not out_cams:
+        raise FileNotFoundError(f"no images found for {len(paths)} poses")
+    return _split_datasets(out_cams, images, masks, points, colors,
+                           eval_holdout)
+
+
 # the reference's datasetType codes (its file dialog's order)
 _TYPE_NAMES = {0: "nerfstudio", 1: "colmap", 2: "colmap_txt",
                3: "realitycapture", 4: "metashape"}
@@ -238,6 +273,19 @@ def load_dataset(source: str, dataset_type: str | int = "auto", *,
         return train, evald
     if dataset_type in ("nerfstudio", "opensfm", "realitycapture",
                         "metashape"):
-        raise _unported(f"the {dataset_type} pose reader (gsio/readers.py)")
+        from divshot_tpu_torch.gsio import readers as R
+        if os.path.isdir(source):
+            cand = {"nerfstudio": "transforms.json",
+                    "opensfm": "reconstruction.json",
+                    "realitycapture": "cameras.csv",
+                    "metashape": "cameras.xml"}[dataset_type]
+            source = os.path.join(source, cand)
+        loader = {"nerfstudio": R.load_nerfstudio,
+                  "opensfm": R.load_opensfm,
+                  "realitycapture": R.load_realitycapture,
+                  "metashape": R.load_metashape}[dataset_type]
+        cameras, paths, pts, cols = loader(source, device=device)
+        return load_external_pose_dataset(cameras, paths, pts, cols,
+                                          device=device, **kw)
     kw.pop("white_background", None)
     return load_colmap_dataset(source, device=device, **kw)

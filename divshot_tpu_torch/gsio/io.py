@@ -1,37 +1,44 @@
-"""Extension-dispatched model I/O (counterpart of
-``divshot_tpu/gsio/io.py``). Ported: the plain 3DGS ``.ply`` both ways and
-the antimatter15 ``.splat`` on save; the compressed and reduced PLY,
-``.spz`` and ``.dvsplat`` (and reading ``.splat`` through this dispatch)
-raise ``NotImplementedError`` naming ROADMAP.md, Queue A item 5.
+"""Extension-dispatched splat model I/O (counterpart of
+``divshot_tpu/gsio/io.py``): ``.ply`` (the standard 3DGS PLY;
+``.compressed`` or ``.reduced`` in the name selects the PlayCanvas
+compressed or the EAGLES-style reduced PLY, and a PLY with a ``chunk``
+element reads as compressed), ``.splat``, ``.spz`` and ``.dvsplat``. The
+files are the JAX package's byte for byte (``.spz``: its payload, under a
+gzip header that carries the time). Loads go to ``device``.
 """
 
 from __future__ import annotations
 
 import os
 
-from divshot_tpu_torch.gsio.ply import load_ply, save_ply, save_splat
+from divshot_tpu_torch.gsio.compressed import (load_compressed_ply,
+                                               save_compressed_ply)
+from divshot_tpu_torch.gsio.dvsplat import load_dvsplat, save_dvsplat
+from divshot_tpu_torch.gsio.ply import (load_ply, load_splat, save_ply,
+                                        save_splat)
+from divshot_tpu_torch.gsio.reduced import load_reduced_ply, save_reduced_ply
+from divshot_tpu_torch.gsio.spz import load_spz, save_spz
 from divshot_tpu_torch.splat.gaussians import GaussianParams
-
-
-def _unported(path: str, what: str):
-    return NotImplementedError(
-        f"{path}: {what} is not ported yet (ROADMAP.md, Queue A item 5)")
 
 
 def save_model(path: str, params: GaussianParams, *,
                antialiased: bool = False, **kw) -> None:
+    """``kw`` goes to the reduced PLY's writer."""
     ext = os.path.splitext(path)[1].lower()
     name = os.path.basename(path).lower()
     if ext == ".ply":
         if ".compressed" in name:
-            raise _unported(path, "the compressed PLY")
-        if ".reduced" in name:
-            raise _unported(path, "the reduced PLY")
-        save_ply(path, params, antialiased=antialiased)
+            save_compressed_ply(path, params, antialiased=antialiased)
+        elif ".reduced" in name:
+            save_reduced_ply(path, params, **kw)
+        else:
+            save_ply(path, params, antialiased=antialiased)
     elif ext == ".splat":
         save_splat(path, params)
-    elif ext in (".spz", ".dvsplat"):
-        raise _unported(path, ext)
+    elif ext == ".spz":
+        save_spz(path, params, antialiased=antialiased)
+    elif ext == ".dvsplat":
+        save_dvsplat(path, params)
     else:
         raise ValueError(f"unknown splat format: {path}")
 
@@ -40,16 +47,24 @@ def load_model(path: str, *, device="cuda") -> tuple[GaussianParams, dict]:
     ext = os.path.splitext(path)[1].lower()
     name = os.path.basename(path).lower()
     if ext == ".ply":
-        if (".compressed" in name or ".reduced" in name
-                or _sniff_compressed(path)):
-            raise _unported(path, "the compressed and reduced PLY")
+        if ".compressed" in name or _sniff_compressed(path):
+            return load_compressed_ply(path, device=device)
+        if ".reduced" in name:
+            return load_reduced_ply(path, device=device)
         return load_ply(path, device=device)
-    if ext in (".splat", ".spz", ".dvsplat"):
-        raise _unported(path, ext)
+    if ext == ".splat":
+        return load_splat(path, device=device), {}
+    if ext == ".spz":
+        return load_spz(path, device=device)
+    if ext == ".dvsplat":
+        return load_dvsplat(path, device=device)
     raise ValueError(f"unknown splat format: {path}")
 
 
 def _sniff_compressed(path: str) -> bool:
     """Detect a chunked compressed PLY by its header elements."""
-    with open(path, "rb") as f:
-        return b"element chunk" in f.read(4096)
+    try:
+        with open(path, "rb") as f:
+            return b"element chunk" in f.read(4096)
+    except OSError:
+        return False

@@ -16,6 +16,8 @@ and numpy: the port's stand-in for the Pillow calls of
   horizontal pass first, each pass in Pillow's 22-bit fixed point and
   rounded to uint8 (``ImagingResample``); RGBA goes through premultiplied
   alpha as Pillow's ``RGBa`` mode does.
+- ``png_size``: the width and height from the IHDR chunk alone, for the
+  pose readers' Pillow size reads (``divshot_tpu/gsio/readers.py``).
 - ``resize_nearest`` and ``to_grey``: Pillow's ``Image.NEAREST`` resize and
   ``convert("L")``, for the masks of ``divshot_tpu/gsio/datasets.py``.
 """
@@ -64,6 +66,16 @@ def _unfilter_paeth(row: bytearray, prev: bytes, bpp: int) -> None:
         pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
         pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
         row[i] = (row[i] + pred) & 0xFF
+
+
+def png_size(path: str) -> tuple[int, int] | None:
+    """(width, height) from a PNG's IHDR chunk; None when the file is not
+    a PNG."""
+    with open(path, "rb") as f:
+        head = f.read(24)
+    if len(head) < 24 or head[:8] != _SIGNATURE or head[12:16] != b"IHDR":
+        return None
+    return struct.unpack(">II", head[16:24])
 
 
 def read_png(path: str) -> np.ndarray:

@@ -177,6 +177,7 @@ def render(
     absgrad_sink: torch.Tensor | None = None,
     means2d_sink: torch.Tensor | None = None,
     npix_sink: torch.Tensor | None = None,
+    override_colors: torch.Tensor | None = None,
     extra_colors: torch.Tensor | None = None,
     cull_sh_radius: float = 0.0,
     with_absgrad: bool = True,
@@ -189,8 +190,11 @@ def render(
     ``absgrad_sink`` / ``means2d_sink`` are zero (N, 2) inputs whose
     gradients harvest the AbsGS absolute and the signed screen-space
     gradients per gaussian, ``npix_sink`` (N,) the pixels each splat was
-    applied to. ``extra_colors`` (N, E <= 4) adds planes composited in the
-    same pass, returned as ``extra``."""
+    applied to. ``override_colors`` (N, 3) replaces the SH colour, so that
+    any per-splat quantity (a depth, a normal) is composited with the same
+    weights; its gradient flows back to it as to the SH colour.
+    ``extra_colors`` (N, E <= 4) adds planes composited in the same pass,
+    returned as ``extra``."""
     if backend == "surfel_pallas":
         return render_surfels(
             params, camera, sh_degree=sh_degree, background=background,
@@ -198,7 +202,8 @@ def render(
             instance_capacity_mult=instance_capacity_mult,
             max_tiles_per_gaussian=max_tiles_per_gaussian, t_eps=t_eps,
             absgrad_sink=absgrad_sink, means2d_sink=means2d_sink,
-            npix_sink=npix_sink, with_geometry=False)
+            npix_sink=npix_sink, override_colors=override_colors,
+            with_geometry=False)
     if backend != "pallas" or binning != "pallas":
         raise NotImplementedError(
             f"render(backend={backend!r}, binning={binning!r}): the port "
@@ -216,11 +221,14 @@ def render(
         proj = proj._replace(radii=torch.where(
             proj.radii > radius_clip, proj.radii,
             torch.zeros((), device=dev)))
-    dirs = safe_normalize(params.means - camera.campos[None, :])
-    shN = params.shN
-    if cull_sh_radius > 0.0:
-        shN = shN * (proj.radii > cull_sh_radius)[:, None, None]
-    colors = eval_sh_color(params.sh0, shN, dirs, sh_degree)
+    if override_colors is not None:
+        colors = override_colors
+    else:
+        dirs = safe_normalize(params.means - camera.campos[None, :])
+        shN = params.shN
+        if cull_sh_radius > 0.0:
+            shN = shN * (proj.radii > cull_sh_radius)[:, None, None]
+        colors = eval_sh_color(params.sh0, shN, dirs, sh_degree)
     opac = opac_raw * proj.comp
     if instance_capacity is None:
         instance_capacity = max(1 << 16,

@@ -13,6 +13,10 @@ instance capacity and a streamed run's views drawn ahead of the step. So
 a resumed run takes the same views and draws as an unbroken one (JAX's
 view sampler restarts from the seed). Every tensor keeps the dtype it is
 stored in: ``pack_level``'s bf16 ``shN`` and moments stay bf16.
+
+The dynamic models' checkpoints (``save_dynamic``, ``load_dynamic``) add
+the deformation network's parameters and its Adam moments and count to
+the same file (JAX: the whole ``DynTrainState`` pytree through orbax).
 """
 
 from __future__ import annotations
@@ -52,7 +56,7 @@ def state_dict(state: TrainState, sampler: np.random.Generator | None = None,
         "dstate": {f: host(getattr(state.dstate, f)) for f in _DSTATE},
         "gen": state.gen.get_state(),
     }
-    if state.bg is not None:
+    if getattr(state, "bg", None) is not None:
         out["bg"] = {k: host(t) for k, t in state.bg.items()}
     if pending_views:
         out["pending_views"] = [int(v) for v in pending_views]
@@ -149,3 +153,53 @@ def resume_trainer(model_path: str, trainer, step: int) -> None:
     if icap is not None and icap != trainer.instance_capacity:
         trainer._render_kwargs["instance_capacity"] = icap
         trainer._build_steps()
+
+
+# ---------------------------------------------------------------------------
+# the dynamic models' state (``models/dynamic.DynTrainState``)
+
+
+def dynamic_state_dict(state, sampler: np.random.Generator | None = None,
+                       instance_capacity: int | None = None) -> dict:
+    """A ``DynTrainState`` as plain tensors on the host, ints and
+    strings: ``state_dict``'s entries, the network's ``state_dict`` and
+    its Adam moments and count."""
+    out = state_dict(state, sampler, instance_capacity)
+    out["net"] = {k: t.detach().cpu().clone()
+                  for k, t in state.net.state_dict().items()}
+    out["net_opt"] = {
+        "mu": {k: t.detach().cpu().clone() for k, t in
+               state.net_opt.mu.items()},
+        "nu": {k: t.detach().cpu().clone() for k, t in
+               state.net_opt.nu.items()},
+        "count": int(state.net_opt.count)}
+    return out
+
+
+def save_dynamic(model_path: str, trainer, *, step: int) -> str:
+    """``iteration_{step}/state.pt`` of a ``DynamicTrainer``: its whole
+    state, view sampler and instance capacity -> the directory."""
+    path = checkpoint_dir(model_path, step)
+    os.makedirs(path, exist_ok=True)
+    torch.save(dynamic_state_dict(trainer.state, trainer._np_rng,
+                                  trainer.instance_capacity),
+               os.path.join(path, "state.pt"))
+    return path
+
+
+def load_dynamic(model_path: str, step: int, template,
+                 sampler: np.random.Generator | None = None):
+    """-> the saved ``DynTrainState`` on ``template``'s device, its
+    network ``template.net`` with the saved parameters loaded in place. A
+    ``sampler`` given is set to the saved view sampler's state."""
+    from divshot_tpu_torch.models.dynamic import DynTrainState, NetAdamState
+    d = load_state_dict(model_path, step)
+    st = _from_state_dict(d, template, sampler)
+    dev = template.params.device
+    template.net.load_state_dict(d["net"])
+    net_opt = NetAdamState(
+        mu={k: t.to(dev) for k, t in d["net_opt"]["mu"].items()},
+        nu={k: t.to(dev) for k, t in d["net_opt"]["nu"].items()},
+        count=int(d["net_opt"]["count"]))
+    return DynTrainState(params=st.params, opt=st.opt, dstate=st.dstate,
+                         net=template.net, net_opt=net_opt, gen=st.gen)

@@ -41,8 +41,8 @@ The port's choices:
   a queued ``num_iters`` at or below the current step ends the run there
   (JAX takes one more step first), and a change queued after the run
   ended applies when ``start_train`` runs again (JAX's loop ends first).
-- ``export_mesh`` raises ``NotImplementedError`` until ``viewer/mesh.py``
-  is ported (ROADMAP.md, Queue A item 7).
+- ``export_mesh`` extracts the mesh on the session's device (the
+  snapshot moved there), its depths through the kernels.
 """
 
 from __future__ import annotations
@@ -347,8 +347,8 @@ class TrainerSession:
     def get_gaussian_rotations(self) -> np.ndarray:
         return self._get("quats")
 
-    def get_params_snapshot(self):
-        """Full alive-only ``GaussianParams`` on the CPU."""
+    def get_params_snapshot(self, device="cpu"):
+        """Full alive-only ``GaussianParams`` on ``device`` (the CPU)."""
         from divshot_tpu_torch.splat.gaussians import GaussianParams
         with self._snapshot_lock:
             if self._snapshot is None:
@@ -356,7 +356,7 @@ class TrainerSession:
             s = dict(self._snapshot)
         means = s.pop("means")
         degree = {0: 0, 3: 1, 8: 2, 15: 3}[s["shN"].shape[1]]
-        return GaussianParams.create(means, sh_degree=degree, device="cpu",
+        return GaussianParams.create(means, sh_degree=degree, device=device,
                                      **s)
 
     # ---- cameras / SfM progress ----
@@ -384,9 +384,14 @@ class TrainerSession:
                    antialiased=self.cfg.raster.mip_antialiased)
 
     def export_mesh(self, path: str) -> None:
-        raise NotImplementedError(
-            "export_mesh: viewer/mesh.py is not ported to divshot_tpu_torch "
-            "yet (ROADMAP.md, Queue A item 7)")
+        """A mesh of the snapshot's splats from the first 32 training
+        cameras, through the session's render arguments, written as OBJ."""
+        from divshot_tpu_torch.viewer.mesh import extract_mesh
+        params = self.get_params_snapshot(device=self.device)
+        cams = [self.get_camera(i)
+                for i in range(min(self.num_cameras, 32))]
+        extract_mesh(params, cams, resolution=self.cfg.mesh_resolution,
+                     out_path=path, render_kw=self.render_kwargs)
 
     def export_sparse_point_cloud(self, path: str) -> None:
         pts, cols = self.get_points3d()

@@ -34,9 +34,10 @@ loss, the backward under ``torch.autograd.detect_anomaly``, each gradient,
 the parameters after Adam and after refine), raising
 ``FloatingPointError`` naming the stage; off, they add nothing.
 
-Still raising ``NotImplementedError`` naming ROADMAP.md: the dynamic
-models and datasets, gradient all-reduce across chips
-(``grad_psum_axis``) and the XLA surfel compositor (``backend="surfel"``).
+Still raising ``NotImplementedError`` naming ROADMAP.md: gradient
+all-reduce across chips (``grad_psum_axis``) and the XLA surfel
+compositor (``backend="surfel"``). The dynamic models have their own step
+(``models/dynamic.py``).
 """
 
 from __future__ import annotations
@@ -219,17 +220,11 @@ def _structure_key(cfg: TrainConfig) -> TrainConfig:
 def check_supported(cfg: TrainConfig, dataset: Dataset | None = None,
                     *, grad_psum_axis: str | None = None) -> None:
     """Raise ``NotImplementedError`` for every option of the JAX trainer
-    that the port does not run yet."""
-    checks = [
-        (cfg.model_type not in (ModelType.GS3D, ModelType.GS2D),
-         f"model_type={cfg.model_type} (the dynamic models)"),
-        (grad_psum_axis is not None, "grad_psum_axis (multi-chip training)"),
-    ]
-    if dataset is not None:
-        checks.append((dataset.times is not None, "a dynamic dataset"))
-    for bad, what in checks:
-        if bad:
-            raise _unported(what)
+    that the port does not run yet: gradient all-reduce across chips. (The
+    dynamic models train through ``models/dynamic.py``; this step, as
+    JAX's, ignores a dataset's times.)"""
+    if grad_psum_axis is not None:
+        raise _unported("grad_psum_axis (multi-chip training)")
 
 
 def render_kwargs_from_config(cfg: TrainConfig) -> dict[str, Any]:

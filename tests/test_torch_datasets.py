@@ -171,8 +171,11 @@ def test_generated_dataset_loads_equal_in_both_packages(tmp_path):
 
 @pytest.mark.parametrize("what", ["use_mask", "nerfstudio"])
 def test_unported_dataset_options_raise(tmp_path, what):
-    """The external-pose readers still raise; ``use_mask``, ported since,
-    loads the COLMAP scene's masks bitwise as JAX's loader does."""
+    """Both are ported now. ``use_mask`` loads the COLMAP scene's masks
+    bitwise as JAX's loader does; the nerfstudio reader, asked for a
+    directory without a ``transforms.json``, fails as JAX's does
+    (``tests/test_torch_formats.py`` holds the readers on their
+    scenes)."""
     _colmap_scene(str(tmp_path), np.random.default_rng(0))
     if what == "use_mask":
         train, _ = load_dataset(str(tmp_path), "colmap", device=CPU,
@@ -182,5 +185,7 @@ def test_unported_dataset_options_raise(tmp_path, what):
         np.testing.assert_array_equal(train.masks.numpy(),
                                       np.asarray(jtrain.masks))
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(FileNotFoundError, match="transforms.json"):
         load_dataset(str(tmp_path), what, device=CPU)
+    with pytest.raises(FileNotFoundError, match="transforms.json"):
+        jax_load_dataset(str(tmp_path), what)

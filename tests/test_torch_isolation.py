@@ -2,7 +2,8 @@
 blocked, every module of ``divshot_tpu_torch`` imports and
 ``chip_smoke.py``'s kernel (with the backward kernels' unit split),
 viewer-path, training-path, 2DGS training-path, dataset-path,
-trainer-options and live-session phases run on the CPU at a tiny scale,
+trainer-options, live-session and dynamic-models-and-export phases run on
+the CPU at a tiny scale,
 with a ``kernels`` record for every kernel. Also checks on the port's
 files: no JAX, flax, PIL, imageio or ``divshot_tpu`` import outside
 docstrings, no file over 200 KB, and the kernel build directory ignored by
@@ -42,6 +43,7 @@ with contextlib.redirect_stdout(buf):
     opts = chip_smoke.phase_options(dev, chip_smoke.TINY)
     live = chip_smoke.phase_session(dev, chip_smoke.TINY)
     chip_smoke.drop_bricks()
+    dyn = chip_smoke.phase_dynamic_export(dev, chip_smoke.TINY)
 out = buf.getvalue()
 assert '"ok"' not in out, out
 assert all(v == 0.0 for v in checks.values()), checks
@@ -107,7 +109,23 @@ assert "apps.viewer: training done at iteration 2" in out
 assert "the saved PLY bitwise the snapshot and rendered bitwise" in out
 assert "bare PNGs without COLMAP ended in Loading_Failed" in out
 assert "(d) LPIPS at 32x32" in out and "evaluate over 2 views: lpips" in out
-for r in records + train + train2d + data + opts + live:
+assert [(r["scene"], r["name"]) for r in dyn] == [
+    (s, k) for s in ("dyn_bars_deform_32", "dyn_bars_hexplane_32",
+                     "dyn_deform_32", "dyn_hexplane_32")
+    for k in ("expand", "forward", "backward")] + [
+    ("mesh_depth_tpu_bricks_mcmc", k) for k in ("expand", "forward")]
+assert all(r["it_per_s"] > 0 for r in dyn[:12])
+assert "(a) deform: 3 steps at 32x32" in out and "(a) hexplane" in out
+assert out.count("checkpoint bitwise equal to the state saved; launches") == 2
+assert "(b) dynamic it/s at 32x32: deform" in out
+exp = dyn[-1]["export"]
+assert all(exp[e]["psnr"] > 30 and exp[e]["bytes"] > 0 for e in (
+    ".compressed.ply", ".reduced.ply", ".splat", ".spz", ".dvsplat"))
+assert exp["kmeans_update_rel"] == 0.0 and exp["kmeans_id_ties"] == 0
+assert exp["kmeans_end_to_end_rel"] == 0.0
+assert exp["kmeans_end_to_end_ids"] == 0
+assert "(c) mesh: 2 views at 512, resolution 12" in out
+for r in records + train + train2d + data + opts + live + dyn:
     assert keys <= set(r), r
     assert r["route"] == "cuda" and r["library_ms"] is None
     assert r["max_abs_err"] == 0.0 and r["bound_ms"] > 0

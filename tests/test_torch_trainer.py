@@ -9,7 +9,8 @@ import pytest
 import torch
 
 from divshot_tpu_torch.apps import train as train_app
-from divshot_tpu_torch.core.config import DensifyStrategy, TrainConfig
+from divshot_tpu_torch.core.config import (DensifyStrategy, TrainConfig,
+                                           config_from_flags)
 from divshot_tpu_torch.gsio.synthetic import (orbit_cameras, random_scene,
                                               render_gt_images)
 from divshot_tpu_torch.raster.render import render
@@ -17,6 +18,7 @@ from divshot_tpu_torch.splat.camera import batch_cameras
 from divshot_tpu_torch.splat.gaussians import init_from_points
 from divshot_tpu_torch.train.optim import PARAM_FIELDS
 from divshot_tpu_torch.train.trainer import (Dataset, Trainer, TrainState,
+                                             check_supported,
                                              make_train_step)
 
 CPU = "cpu"
@@ -132,16 +134,18 @@ def test_train_state_carry_across_and_step_schedule():
 
 
 def test_unported_options_raise():
+    """What the port still lacks raises: multi-chip training and the
+    non-kernel backends. The dynamic models and datasets (ported, through
+    ``models/dynamic.py``) no longer do: the static ``Trainer`` takes a
+    dataset with times, as JAX's does, and ignores them."""
     cfg, ds, params = _tiny()
-    for kw in (dict(model_type=2), dict(model_type=3)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Trainer(cfg.replace(**kw), ds, params)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_train_step(cfg, ds, grad_psum_axis="data")
     dynamic = Dataset.from_views(ds.cameras, ds.images.numpy(),
                                  times=np.linspace(0, 1, ds.num_views))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(cfg, dynamic, params)
+    for kw in (dict(model_type=2), dict(model_type=3)):
+        check_supported(cfg.replace(**kw), dynamic)
+    assert Trainer(cfg, dynamic, params).dataset.times is not None
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         render(params, ds.cameras[0], backend="tiles")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -154,9 +158,24 @@ def test_unported_options_raise():
 @pytest.mark.parametrize("flag", [
     ["--mesh_resolution", "128"], ["--export_mesh", "1"],
     ["--model_type", "2"], ["--model_type", "3"]])
-def test_train_app_unported_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_app.main(["--demo", "--device", "cpu", *flag])
+def test_train_app_unported_flags_raise(flag, monkeypatch, tmp_path):
+    """These flags are ported now. The mesh flags are taken and, as in
+    JAX's app, do nothing more; the dynamic model types train only on a
+    dataset with times, so the demo scene (which has none) raises JAX's
+    own ``ValueError`` for them."""
+    monkeypatch.setattr(train_app, "DEMO_SPLATS", 300)
+    monkeypatch.setattr(train_app, "DEMO_VIEWS", 2)
+    monkeypatch.setattr(train_app, "DEMO_WIDTH", 32)
+    argv = ["--demo", "--device", "cpu", "--iterations", "1", "--cap_max",
+            "1024", "--model_path", str(tmp_path), *flag]
+    train_app.check_flags(config_from_flags(flag))
+    if flag[0] == "--model_type":
+        with pytest.raises(ValueError, match="per-view times"):
+            train_app.run(argv)
+    else:
+        tr = train_app.run(argv)
+        assert tr.state.step == 1
+        assert getattr(tr.cfg, flag[0][2:]) == int(flag[1])
 
 
 @pytest.mark.parametrize("flag", [
