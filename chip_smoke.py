@@ -60,7 +60,8 @@ Phases, each a function of ``(device, scale)``:
    25 for the time limit) into a temporary directory and loaded; (b)
    ``apps.train --source_path`` on it with ``--white_background 1`` and
    ``--cap_max 262144``, evals, a periodic checkpoint and the final one,
-   stopped short of its schedule; (c) resumed with ``--load_itr -2`` to
+   stopped half-way through its 100 steps (an eval every 25, a
+   checkpoint every 30, an alpha reset every 25); (c) resumed with ``--load_itr -2`` to
    the end. It checks the files, the checkpoint against the state saved
    (bitwise), the eval curve kept up to the resume step, the final PLY
    rendered against the final params (bitwise) and the eval PSNR rising;
@@ -104,7 +105,7 @@ Phases, each a function of ``(device, scale)``:
    capacity), as 3DGS, as exact 2DGS (the surfel kernels) and streamed: a pause holds the iteration for 0.5 s, a queued
    ``pos_lr_init`` keeps the step functions, a queued ``ssim_weight`` 0
    rebuilds them, a queued ``num_iters`` ends the run there; (c)
-   ``load_train_data`` on phase 7's ``tpu_bricks``, 100 steps through the
+   ``load_train_data`` on phase 7's ``tpu_bricks``, 50 steps through the
    session, ``save_model`` to a PLY read back and rendered bitwise as the
    snapshot's params, and a folder of bare PNGs with no COLMAP ending in
    ``Loading_Failed``; (d) LPIPS with random weights at 800x800, on the
@@ -127,7 +128,8 @@ Phases, each a function of ``(device, scale)``:
    of each kernel a step (the evals' renders add expand and forward),
    the three kernels against their plain versions on the trained state
    deformed to view 0's time, and each model type's it/s beside the
-   static train cell's (5(b)); (c) the repo's trained model through
+   static train cell's (5(b)); (c) the repo's trained model, every
+   second splat (131,072), through
    ``apps.export`` to ``.compressed.ply``, ``.reduced.ply``, ``.splat``,
    ``.spz`` and ``.dvsplat`` and back, each reload rendered finite
    through ``render_fast`` with its PSNR against the float model's frame;
@@ -137,7 +139,30 @@ Phases, each a function of ``(device, scale)``:
    resolution 128: vertices and faces, indices in range, one launch of
    expand and forward a view) and those two kernels against their plain
    versions at the depth render's shapes. Each save, load and
-   extraction's ms is printed.
+   extraction's ms is printed;
+11. the editor side at the size of a trained scene that users edit: (a)
+   ``EditSession`` on 1M random splats at SH 3 with a 250K-splat model
+   merged in (the capacity grows): every selection tool (sphere, box,
+   rect, a 64-point brush, polygon), ``pick``, hide, paint, a transform
+   with a rotation (the SH rotated), the transform and paint palettes and
+   their bakes, crop, delete and ``compact``, each op timed and the
+   selected, hidden and deleted counts printed; three undos and three
+   redos, each bitwise the params and state it restores; (b) a scene of
+   the edited model (graded, cropped, world-transformed) and the merged
+   model over a SUN_SKY plate through ``render_scene`` in SPLAT, DEPTH and
+   NORMAL, then ``render_with_selection`` and ``selection_outline`` at
+   1920x1080: the launches of expand and forward counted (one each an
+   entity and a frame), the two kernels against their plain versions on
+   the tint frame (``editor_tint_*`` records); the dense debug modes
+   (RINGS, ELLIPSOIDS, CENTERS, POINT) on a 20K-splat entity at the same
+   frame, timed; (c) the edited model written as a PLY, ``apps.render``
+   with ``--orbit 12 --width 1280 --height 720 --video`` and with
+   ``--fast --video``: the PNGs, each AVI read back through its ``idx1``
+   (12 ``00dc`` frames, each a JPEG from SOI to EOI), the launches (one
+   each a view), the port's JPEG encoder's ms a frame; ``render_taa`` of 8
+   frames and ``post_process`` on one view; (d) ``apps.edit`` with
+   ``--op``s, ``--merge``, ``--html`` and ``--output`` on that PLY, the
+   output's splat count against an ``EditSession`` given the same ops.
 
 Both compositing routes, 3DGS and surfels, go through one harness
 (``Route``, ``Frame``, ``kernel_records``, ``stage_times``). It prints
@@ -155,6 +180,7 @@ import io
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -169,19 +195,23 @@ import numpy as np
 import torch
 
 from divshot_tpu_torch import _build
+from divshot_tpu_torch import scene as SC
+from divshot_tpu_torch.apps import edit as edit_app
 from divshot_tpu_torch.apps import export as export_app
+from divshot_tpu_torch.apps import render as render_app
 from divshot_tpu_torch.apps import train as train_app
 from divshot_tpu_torch.apps import viewer as viewer_app
 from divshot_tpu_torch.apps.render import orbit_for_model, render_orbit
 from divshot_tpu_torch.core.config import DensifyStrategy, TrainConfig
 from divshot_tpu_torch.core.metrics import TrainingStatus
 from divshot_tpu_torch.core.profiling import StepTimer, profile_scope
+from divshot_tpu_torch.edit import ops as ED
 from divshot_tpu_torch.gsio.datasets import load_dataset
 from divshot_tpu_torch.gsio import kmeans as KM
 from divshot_tpu_torch.gsio.io import load_model, save_model
 from divshot_tpu_torch.gsio.loader import HostImageStore
 from divshot_tpu_torch.gsio.ply import load_ply, read_ply_arrays
-from divshot_tpu_torch.gsio.png import write_png
+from divshot_tpu_torch.gsio.png import read_png, write_png
 from divshot_tpu_torch.gsio.procedural import generate_dataset
 from divshot_tpu_torch.gsio.synthetic import (orbit_cameras, random_scene,
                                               render_gt_images)
@@ -210,6 +240,9 @@ from divshot_tpu_torch.train.trainer import (Dataset, Trainer, TrainState,
                                              render_kwargs_from_config,
                                              scaled_camera)
 from divshot_tpu_torch.viewer.html_export import splat_bytes
+from divshot_tpu_torch.viewer import post as POST
+from divshot_tpu_torch.viewer import scene_render as SR_SCENE
+from divshot_tpu_torch.viewer import video as VID
 from divshot_tpu_torch.viewer.live import LiveViewerServer
 
 REPO = Path(__file__).resolve().parent
@@ -406,22 +439,28 @@ class Scale:
     dyn_runs: tuple       # model_type 3 steps, cap_max); (c)'s (frame
     export: tuple         # size, mesh views, mesh resolution, the CPU
     #                       k-means check's values a job)
+    editor: tuple         # phase 11: (the model's splats, the merged
+    #                       model's, the dense debug entity's, apps.render's
+    #                       width, height and orbit views, render_taa's
+    #                       frames)
 
 
 FULL = Scale(1920, 1080, 4, 1, 1_000_000, 1 << 24, 50_000, 512, 6,
              150, 50_000, 100_000, 1 << 17, 800, 4, 30, 12, 60,
-             800, (24, 8), 262_144, 200, 100, (50, 50, 25),
+             800, (24, 8), 262_144, 100, 50, (25, 30, 25),
              6, 4, (100, 40, 25, 50, 20, 10), 5,
-             (20_000, 32, 400, 0), (150, 50, 15, 3, 20, 100),
+             (20_000, 32, 400, 0), (150, 50, 15, 3, 20, 50),
              (48, 5, 150, 300), (20_000, 800, 4, 8, 8), (60, 30, 262_144),
-             (800, 24, 128, 1 << 13))
+             (800, 24, 128, 1 << 13),
+             (1_000_000, 250_000, 20_000, 1280, 720, 12, 8))
 TINY = Scale(64, 48, 1, 512, 1_500, 1 << 16, 400, 64, 1,
              3, 300, 500, 1 << 10, 64, 2, 2, 0, 3,
              32, (3, 2), 1024, 12, 8, (4, 4, 3),
              2, 2, (12, 6, 3, 4, 3, 2), 3,
              (300, 2, 32, 1024), (12, 3, 2, 2, 2, 3),
              (32, 2, 3, 3), (300, 32, 2, 2, 2), (4, 2, 1024),
-             (32, 2, 12, 1 << 10))
+             (32, 2, 12, 1 << 10),
+             (2_000, 500, 300, 64, 48, 3, 2))
 
 
 def log(msg: str) -> None:
@@ -951,14 +990,18 @@ def unit_split_check(route: Route, nch: int, device) -> dict:
 # main path
 
 
+PARAM_FIELDS = ("means", "scales", "quats", "opacity", "sh0", "shN",
+                "alive")
+
+
 def _load(path: Path, device: torch.device, scale: Scale) -> GaussianParams:
     """A model of the repo, every ``scale.model_stride``-th splat kept."""
     params, _ = load_model(str(path), device=device)
     if scale.model_stride > 1:
         keep = torch.arange(0, params.capacity, scale.model_stride,
                             device=device)
-        params = GaussianParams(**{f: getattr(params, f)[keep] for f in (
-            "means", "scales", "quats", "opacity", "sh0", "shN", "alive")})
+        params = GaussianParams(**{f: getattr(params, f)[keep]
+                                   for f in PARAM_FIELDS})
     return params
 
 
@@ -3300,6 +3343,423 @@ def phase_dynamic_export(device: torch.device, scale: Scale) -> list[dict]:
 
 
 # --------------------------------------------------------------------------
+# phase 11: the editor side
+
+
+def timed(fn, device: torch.device):
+    """-> (fn(), its milliseconds on the host clock with the card synced
+    before and after)."""
+    sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(device)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _bits(sess: ED.EditSession) -> tuple:
+    """Copies of a session's params and state, for bitwise checks."""
+    p = sess.params
+    return tuple(getattr(p, f).clone() for f in PARAM_FIELDS) + (
+        sess.state.clone(),)
+
+
+def _same_bits(sess: ED.EditSession, snap: tuple, what: str) -> None:
+    now = tuple(getattr(sess.params, f) for f in PARAM_FIELDS) + (
+        sess.state,)
+    if not all(a.shape == b.shape and torch.equal(a, b)
+               for a, b in zip(now, snap)):
+        raise AssertionError(f"{what}: params and state not bitwise "
+                             f"restored")
+
+
+def _rot_y(deg: float, t=(0.0, 0.0, 0.0), s: float = 1.0) -> np.ndarray:
+    th = math.radians(deg)
+    m = np.eye(4)
+    m[:3, :3] = np.array([[math.cos(th), 0, math.sin(th)], [0, 1, 0],
+                          [-math.sin(th), 0, math.cos(th)]]) * s
+    m[:3, 3] = t
+    return m
+
+
+def editor_session(device: torch.device, scale: Scale):
+    """(a) Every edit op on the editor's model (``scale.editor``'s splats,
+    SH 3) with a second model merged in, each op timed; three undos and
+    three redos, each held bitwise against the params and state it
+    restores. -> (the session, the merged model, the camera, the ms of
+    each op)."""
+    n, n_merge = scale.editor[:2]
+    rng = np.random.default_rng(11)
+    params = random_scene(rng, n, sh_degree=3, scale_range=(0.004, 0.025),
+                          device=device)
+    other = random_scene(rng, n_merge, sh_degree=3,
+                         scale_range=(0.004, 0.025), device=device)
+    cam = orbit_cameras(1, width=scale.width, height_px=scale.height,
+                        device=device)[0]
+    w, h = cam.width, cam.height
+    sess = ED.EditSession(params)
+    t = np.linspace(0, 1, 64)
+    stroke = np.stack([w * (0.2 + 0.6 * t),
+                       h * (0.5 + 0.2 * np.sin(6 * t))], -1)
+    poly = np.array([[0.3, 0.2], [0.7, 0.25], [0.8, 0.6], [0.5, 0.85],
+                     [0.2, 0.6]]) * [w, h]
+    ms, counts = {}, {}
+
+    def count(label):
+        counts[label] = dict(selected=int(sess.selected.sum()),
+                             hidden=int(sess.hidden.sum()),
+                             deleted=int(sess.deleted.sum()),
+                             alive=sess.params.num_alive)
+
+    script = [
+        ("select_sphere", lambda: sess.select_sphere([0.2, 0.0, 0.1], 1.0)),
+        ("select_box", lambda: sess.select_box([-1.5, -0.5, -1.5],
+                                               [0.0, 0.5, 0.0], ED.OP_ADD)),
+        ("select_rect", lambda: sess.select_rect(cam, 0.2 * w, 0.2 * h,
+                                                 0.45 * w, 0.6 * h,
+                                                 ED.OP_ADD)),
+        ("select_brush", lambda: sess.select_brush(cam, stroke, 0.02 * w,
+                                                   ED.OP_REMOVE)),
+        ("select_polygon", lambda: sess.select_polygon(cam, poly,
+                                                       ED.OP_ADD)),
+        ("pick", lambda: sess.pick(cam, w / 2, h / 2)),
+        ("hide_selected", sess.hide_selected),
+        ("select_inverse", sess.select_inverse),
+        ("paint_selected", lambda: sess.paint_selected([0.9, 0.2, 0.1])),
+        ("transform_selected", lambda: sess.transform_selected(
+            _rot_y(30.0, (0.1, 0.05, -0.1), 1.1))),
+        ("palette_transform", lambda: ED.palette_transform_selected(
+            sess, _rot_y(-15.0, (0.0, 0.2, 0.0)))),
+        ("palette_paint", lambda: ED.palette_paint_selected(
+            sess, (0.1, 0.4, 0.9))),
+        ("effective_params", lambda: ED.effective_params(sess)),
+        ("bake_palette", lambda: ED.bake_palette(sess)),
+        ("bake_paint_palette", lambda: ED.bake_paint_palette(sess)),
+        ("apply_crop", lambda: sess.apply_crop([
+            {"type": "box", "lo": [-2.5] * 3, "hi": [2.5] * 3},
+            {"type": "sphere", "center": [0.8, 0.8, 0.8], "radius": 0.4,
+             "op": "remove"}])),
+        ("unhide_all", sess.unhide_all),
+        ("select_sphere_2", lambda: sess.select_sphere([-0.5, 0.3, 0.2],
+                                                       0.6)),
+        ("delete_selected", sess.delete_selected),
+        ("compact", sess.compact),
+        ("merge", lambda: sess.merge(other)),
+    ]
+    snaps = []
+    picked = -1
+    for label, fn in script:
+        if label in ("delete_selected", "compact", "merge"):
+            snaps.append(_bits(sess))
+        out, ms[label] = timed(fn, device)
+        if label == "pick":
+            picked = out
+        count(label)
+    snaps.append(_bits(sess))
+    if picked < 0:
+        raise AssertionError("pick found no splat at the frame's centre")
+    sel = counts["select_polygon"]["selected"]
+    if not 0 < sel < n or counts["hide_selected"]["hidden"] != sel:
+        raise AssertionError(f"selection counts {counts}")
+    if counts["compact"]["alive"] != n - counts["delete_selected"][
+            "deleted"] \
+            or counts["merge"]["alive"] != counts["compact"]["alive"] \
+            + n_merge or sess.params.capacity <= n:
+        raise AssertionError(f"compact / merge counts {counts}")
+    for i in range(3):
+        _, ms[f"undo_{i}"] = timed(sess.undo, device)
+        _same_bits(sess, snaps[-2 - i], f"undo {i}")
+    for i in range(3):
+        _, ms[f"redo_{i}"] = timed(sess.redo, device)
+        _same_bits(sess, snaps[-3 + i], f"redo {i}")
+    _, ms["select_sphere_3"] = timed(
+        lambda: sess.select_sphere([0.3, 0.0, 0.0], 0.8), device)
+    log(f"  (a) {n} splats SH 3 + {n_merge} merged (capacity "
+        f"{sess.params.capacity}), picked splat {picked}; counts: "
+        + "; ".join(f"{k} {v['selected']} sel / {v['hidden']} hidden / "
+                    f"{v['deleted']} deleted / {v['alive']} alive"
+                    for k, v in counts.items()
+                    if k in ("select_polygon", "hide_selected", "apply_crop",
+                             "delete_selected", "compact", "merge")))
+    log("  (a) op ms: " + ", ".join(f"{k} {v:.2f}" for k, v in ms.items()))
+    log("  (a) three undos and three redos, each bitwise the params and "
+        "state it restores")
+    return sess, other, cam, ms
+
+
+def _tint_inputs(selected: torch.Tensor):
+    """A frame's inputs with ``render_with_selection``'s tinted colours."""
+    def inputs(params, cam, geometry):
+        proj, colors, opac = frame_inputs(params, cam)
+        return proj, SR_SCENE.selection_colors(colors, selected), opac
+    return inputs
+
+
+def editor_scene(device: torch.device, scale: Scale, sess, other, cam):
+    """(b) A scene of the edited model (graded, cropped, world-transformed)
+    and the merged model over a SUN_SKY plate, rendered in SPLAT, DEPTH
+    and NORMAL, then the selection tint and outline; the launches of
+    expand and forward counted (one each an entity and a frame); the two
+    kernels against their plain versions on the tint frame; the dense
+    debug modes on a small entity, timed."""
+    scene = SC.Scene("editor")
+    crop = SC.GaussianCrop()
+    crop.add(SC.CropVolume(type=SC.CropType.BOX, pmin=(-2.0, -2.0, -2.0),
+                           pmax=(2.0, 2.0, 2.0)))
+    comp = SC.GaussianComponent(params=sess.visible_params(),
+                                brightness=0.05, white_point=0.95,
+                                transparency=0.9, crop=crop)
+    scene.create_entity("edited", transform=_rot_y(20.0, (0.0, 0.1, 0.0))
+                        .astype(np.float32)).add(comp)
+    second = SC.GaussianComponent(params=other)
+    scene.create_entity("second", transform=_rot_y(
+        0.0, (1.2, 0.0, -0.6)).astype(np.float32)).add(second)
+    sky = SC.Environment(mode=SC.EnvironmentMode.SUN_SKY, intensity=0.9)
+    scene.create_entity("sky").add(sky)
+    vis = sess.visible_params()
+    selected = sess.selected & vis.alive
+    frames, ms = {}, {}
+
+    def main_path():
+        for mode in ("SPLAT", "DEPTH", "NORMAL"):
+            comp.render_type = SC.GaussianRenderType[mode]
+            frames[mode], ms[mode] = timed(
+                lambda: SR_SCENE.render_scene(scene, cam), device)
+        comp.render_type = SC.GaussianRenderType.SPLAT
+        frames["tint"], ms["tint"] = timed(
+            lambda: SR_SCENE.render_with_selection(vis, cam, selected),
+            device)
+        frames["outline"], ms["outline"] = timed(
+            lambda: SR_SCENE.selection_outline(vis, cam, selected), device)
+
+    with torch.no_grad():
+        _, launches = count_launches(main_path, device, None,
+                                     "(b) the editor's frames",
+                                     only_steps=False,
+                                     kernels=VIEWER_KERNELS)
+    if device.type == "cuda" and any(launches[k] != 8
+                                     for k in VIEWER_KERNELS):
+        raise AssertionError(f"(b) launches {launches}, want 8 each")
+    for mode in ("SPLAT", "DEPTH", "NORMAL"):
+        img = frames[mode]
+        if img.shape != (cam.height, cam.width, 3) or not bool(
+                torch.isfinite(img).all()):
+            raise AssertionError(f"(b) {mode} frame")
+    _check_frame(*frames["tint"], "(b) selection tint")
+    outline = frames["outline"]
+    n_edge = int(outline.sum())
+    if not bool(((outline == 0) | (outline == 1)).all()) or n_edge == 0:
+        raise AssertionError("(b) the outline is not a non-empty 0/1 mask")
+    shown = SR_SCENE.composite_outline(frames["tint"][0], outline)
+    if not bool(torch.isfinite(shown).all()):
+        raise AssertionError("(b) the outline composited over the tint")
+    log(f"  (b) {cam.width}x{cam.height}, entities of {vis.num_alive} and "
+        f"{other.num_alive} splats, selection {int(selected.sum())}: "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in ms.items())
+        + f"; outline {n_edge} pixels")
+    with torch.no_grad():
+        parts = scene_parts(scene, comp, second, sky, cam, device)
+    log("  (b) the SPLAT scene frame's parts, each timed alone: " + ", ".join(
+        f"{k} {v:.2f} ms" for k, v in parts.items()))
+    route = dataclasses.replace(GAUSS, inputs=_tint_inputs(selected))
+    cap = max(1 << 16, 8 * vis.capacity)
+    fr = make_frame(vis, cam, cap, route=route)
+    recs = kernel_records(f"editor_tint_{vis.num_alive}", fr, device, scale,
+                          launches)
+    dense_ms = {}
+    small = random_scene(np.random.default_rng(12), scale.editor[2],
+                         sh_degree=3, device=device)
+    for mode in ("RINGS", "ELLIPSOIDS", "CENTERS", "POINT"):
+        c = SC.GaussianComponent(params=small,
+                                 render_type=SC.GaussianRenderType[mode])
+        (img, alpha), dense_ms[mode] = timed(
+            lambda: SR_SCENE.render_component(c, cam), device)
+        _check_frame(img, alpha, f"(b) {mode}")
+    log(f"  (b) dense debug modes, {scale.editor[2]} splats at "
+        f"{cam.width}x{cam.height}: " + ", ".join(
+            f"{k} {v:.1f} ms" for k, v in dense_ms.items()))
+    for r in recs:
+        r.update(editor_ms=ms, dense_ms=dense_ms, scene_parts_ms=parts)
+    return recs
+
+
+def scene_parts(scene, comp, second, sky, cam, device) -> dict:
+    """The parts of ``render_scene``'s SPLAT frame, each timed alone (ms):
+    the edited entity's grading with its crop, the crop mask alone, its
+    world transform baked in, its render; the second entity whole; the
+    plate made and sent to the card; then the whole frame again."""
+    comp.render_type = SC.GaussianRenderType.SPLAT
+    world = scene.find("edited").world_transform(scene)
+    graded, ms = {}, {}
+    graded["p"], ms["grade+crop"] = timed(
+        lambda: comp.graded_params(device), device)
+    _, ms["crop mask"] = timed(
+        lambda: comp.crop.keep_mask(comp.params.means), device)
+    moved, ms["transform"] = timed(
+        lambda: SR_SCENE.transform_params(graded["p"], world), device)
+    _, ms["render"] = timed(lambda: render(moved, cam), device)
+    _, ms["second entity"] = timed(lambda: SR_SCENE.render_component(
+        second, cam, scene.find("second").world_transform(scene)), device)
+    _, ms["plate"] = timed(lambda: torch.as_tensor(np.array(
+        sky.sample_background(cam.width, cam.height), np.float32),
+        device=device), device)
+    _, ms["whole frame"] = timed(
+        lambda: SR_SCENE.render_scene(scene, cam), device)
+    return ms
+
+
+def _check_avi(path: str, n: int, what: str) -> None:
+    data = open(path, "rb").read()
+    frames = VID.read_mjpeg_avi(path)
+    if data[:4] != b"RIFF" or data[8:12] != b"AVI " or len(frames) != n \
+            or data.count(b"00dc") < n:
+        raise AssertionError(f"{what}: {len(frames)} frames of {n}")
+    for i, f in enumerate(frames):
+        if f[:2] != b"\xff\xd8" or f.rstrip(b"\x00")[-2:] != b"\xff\xd9":
+            raise AssertionError(f"{what}: frame {i} lacks SOI / EOI")
+
+
+def _run_app(main, argv, what):
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    if rc != 0:
+        raise AssertionError(f"{what}: rc {rc}: {buf.getvalue()}")
+    return buf.getvalue()
+
+
+def editor_apps(device: torch.device, scale: Scale, sess, cam) -> dict:
+    """(c) The edited model as a PLY, then ``apps.render`` without
+    ``--fast`` and with it, each with ``--video``: the PNGs and a valid
+    MJPEG AVI of the port's own encoder (its ms a frame), each path's
+    launches counted; ``post_process`` and ``render_taa`` on one view.
+    (d) ``apps.edit`` with ``--op``s, ``--merge``, ``--html`` and
+    ``--output`` on that PLY, the output's splat count against an
+    ``EditSession`` given the same ops."""
+    _, _, _, aw, ah, orbit, taa = scale.editor
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ply = f"{tmp}/edited.ply"
+        vis = sess.visible_params()
+        _, out["ply_save_ms"] = timed(lambda: save_model(ply, vis), device)
+        # the apps' fixed instance capacity (JAX's 2^20) against the
+        # orbit's demand
+        bg = torch.zeros((3,), device=device)
+        out["orbit_demand"] = max(int(render_fast(
+            vis, c, background=bg, instance_capacity=scale.probe_capacity
+        )[2].num_instances) for c in orbit_for_model(
+            vis, orbit, radius=4.0, width=aw, height=ah, fov=50.0))
+        common = ["--model", ply, "--orbit", str(orbit), "--width", str(aw),
+                  "--height", str(ah), "--device", device.type]
+        for label, flags in (("views", []), ("fast", ["--fast"])):
+            avi = f"{tmp}/{label}.avi"
+            argv = common + ["--out", f"{tmp}/{label}", "--video", avi,
+                             *flags]
+            what = " ".join(["(c) apps.render", *flags, "--video"])
+            t0 = time.perf_counter()
+            text, launches = count_launches(
+                lambda: _run_app(render_app.main, argv, what), device, None,
+                what, only_steps=False, kernels=VIEWER_KERNELS)
+            out[f"render_{label}_s"] = time.perf_counter() - t0
+            # the app's capacity holds the orbit's demand: no view drops
+            # instances
+            grown = re.search(r"demand (\d+) .* capacity (\d+)", text)
+            cap = int(grown[2]) if grown else render_app.APP_CAPACITY
+            if cap < out["orbit_demand"] + render_app.GUARD_LANES or (
+                    grown and int(grown[1]) != out["orbit_demand"]):
+                raise AssertionError(f"(c) {label}: capacity {cap}, the "
+                                     f"orbit's demand {out['orbit_demand']}"
+                                     f": {text}")
+            out["app_capacity"] = cap
+            if device.type == "cuda" and any(launches[k] != orbit
+                                             for k in VIEWER_KERNELS):
+                raise AssertionError(f"(c) {label}: launches {launches}")
+            _check_avi(avi, orbit, f"(c) {label}")
+            pngs = sorted(os.listdir(f"{tmp}/{label}"))
+            if len(pngs) != orbit:
+                raise AssertionError(f"(c) {label}: {len(pngs)} PNGs")
+            out[f"avi_{label}_bytes"] = os.path.getsize(avi)
+        # the encoder alone on one of the frames, on the card
+        frame = VID.to_uint8(torch.as_tensor(
+            read_png(f"{tmp}/views/{pngs[0]}"), device=device))
+        VID.encode_jpeg(frame)
+        reps = 3
+        _, enc = timed(lambda: [VID.encode_jpeg(frame) for _ in
+                                range(reps)], device)
+        out["jpeg_ms_per_frame"] = enc / reps
+        log(f"  (c) {vis.num_alive} splats, PLY written in "
+            f"{out['ply_save_ms']:.0f} ms; apps.render {orbit} views at "
+            f"{aw}x{ah} with --video: {out['render_views_s']:.2f} s, "
+            f"--fast --video {out['render_fast_s']:.2f} s; AVIs of "
+            f"{orbit} 00dc frames, idx1 pointing at each, SOI / EOI "
+            f"({out['avi_views_bytes']} / {out['avi_fast_bytes']} bytes); "
+            f"JPEG encoder {out['jpeg_ms_per_frame']:.1f} ms a frame; the "
+            f"orbit's largest instance demand {out['orbit_demand']} held "
+            f"by the app's capacity {out['app_capacity']} (JAX's fixed "
+            f"{render_app.APP_CAPACITY}, or more where the demand needs "
+            f"it)")
+        view_cam = orbit_cameras(1, width=scale.width, height_px=scale.height,
+                                 device=device)[0]
+        with torch.no_grad():
+            img, out["taa_ms"] = timed(lambda: POST.render_taa(
+                lambda c: render(vis, c).image, view_cam, taa), device)
+            pp, out["post_ms"] = timed(lambda: POST.post_process(
+                img, tonemap="aces", exposure=0.2, gamma=1.1,
+                sharpen_amount=0.25), device)
+        if not bool(torch.isfinite(pp).all()) or float(pp.max()) > 1.0:
+            raise AssertionError("(c) post_process")
+        log(f"  (c) render_taa of {taa} frames {out['taa_ms']:.1f} ms, "
+            f"post_process {out['post_ms']:.2f} ms at "
+            f"{view_cam.width}x{view_cam.height}")
+        # (d) apps.edit on that PLY
+        extra = f"{tmp}/extra.ply"
+        save_model(extra, random_scene(np.random.default_rng(13),
+                                       scale.editor[1] // 10, sh_degree=3,
+                                       device=device))
+        ops = ["select_sphere:0,0,0,1.0", "select_inverse", "delete",
+               "crop_sphere:0,0,0,2.5", "transform_rotate_y:30",
+               "select_box:-1,-1,-1,0,1,1", "paint:0.2,0.8,0.3", "compact"]
+        argv = ["--input", ply, "--merge", extra, "--device", device.type]
+        for o in ops:
+            argv += ["--op", o]
+        edited, html = f"{tmp}/out.ply", f"{tmp}/out.html"
+        t0 = time.perf_counter()
+        _run_app(edit_app.main, argv + ["--output", edited, "--html", html],
+                 "apps.edit")
+        out["edit_app_s"] = time.perf_counter() - t0
+        back, _ = load_model(edited, device=device)
+        ref = ED.EditSession(load_model(ply, device=device)[0])
+        ref.merge(load_model(extra, device=device)[0])
+        for o in ops:
+            edit_app.apply_op(ref, o)
+        want = ref.visible_params().num_alive
+        if back.num_alive != want:
+            raise AssertionError(f"(d) {back.num_alive} splats in the "
+                                 f"output, the session {want}")
+        log(f"  (d) apps.edit with {len(ops)} ops and a merge: "
+            f"{out['edit_app_s']:.2f} s, {back.num_alive} splats out (the "
+            f"session's {want}), HTML {os.path.getsize(html) / 1e6:.1f} MB")
+    return out
+
+
+def phase_editor(device: torch.device, scale: Scale) -> list[dict]:
+    """Phase 11: (a) the edit session, (b) the scene's frames through
+    expand and forward, (c) ``apps.render`` with video, post and TAA, (d)
+    ``apps.edit``."""
+    t0 = time.perf_counter()
+    sess, other, cam, op_ms = editor_session(device, scale)
+    log(f"  (a) done in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    recs = editor_scene(device, scale, sess, other, cam)
+    log(f"  (b) done in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    apps = editor_apps(device, scale, sess, cam)
+    log(f"  (c, d) done in {time.perf_counter() - t0:.2f} s")
+    for r in recs:
+        r.update(op_ms=op_ms, apps=apps)
+    return recs
+
+
+# --------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -3334,6 +3794,7 @@ def main() -> int:
             if r["name"] == "backward" and r["scene"].startswith("dyn_")
             and not r["scene"].startswith("dyn_bars")))
     records += dyn
+    records += run("11 the editor side", phase_editor)
     log(f"all phases ok in {time.perf_counter() - t_all:.2f} s")
     print(json.dumps({"kernels": records}))
     print(ident["smi"] or f"{ident['kind']}, power limit not readable")

@@ -15,7 +15,10 @@ and numpy: the port's stand-in for the Pillow calls of
   separable three-lobe Lanczos whose support widens with the downscale,
   horizontal pass first, each pass in Pillow's 22-bit fixed point and
   rounded to uint8 (``ImagingResample``); RGBA goes through premultiplied
-  alpha as Pillow's ``RGBa`` mode does.
+  alpha as Pillow's ``RGBa`` mode does. ``resize_bicubic`` is the same
+  pipeline with Pillow's bicubic kernel (a = -0.5, support 2), its default
+  ``Image.resize(size)``, for the environment plate of
+  ``divshot_tpu/scene/components.py``.
 - ``png_size``: the width and height from the IHDR chunk alone, for the
   pose readers' Pillow size reads (``divshot_tpu/gsio/readers.py``).
 - ``resize_nearest`` and ``to_grey``: Pillow's ``Image.NEAREST`` resize and
@@ -158,7 +161,7 @@ def write_png(path: str, img: np.ndarray) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Lanczos resize (Pillow's libImaging/Resample.c)
+# Lanczos and bicubic resize (Pillow's libImaging/Resample.c)
 
 _PRECISION_BITS = 32 - 8 - 2
 
@@ -171,21 +174,35 @@ def _lanczos(x: np.ndarray) -> np.ndarray:
     return np.where((x >= -3.0) & (x < 3.0), sinc(x) * sinc(x / 3.0), 0.0)
 
 
-def _coeffs(in_size: int, out_size: int):
+def _bicubic(x: np.ndarray) -> np.ndarray:
+    """Pillow's ``bicubic_filter`` (a = -0.5), support 2."""
+    a = -0.5
+    x = np.abs(x)
+    near = ((a + 2.0) * x - (a + 3.0)) * x * x + 1
+    far = (((x - 5) * x + 8) * x - 4) * a
+    return np.where(x < 1.0, near, np.where(x < 2.0, far, 0.0))
+
+
+# each filter's kernel and support, as Pillow's ``struct filter``
+_FILTERS = {"lanczos": (_lanczos, 3.0), "bicubic": (_bicubic, 2.0)}
+
+
+def _coeffs(in_size: int, out_size: int, kind: str = "lanczos"):
     """-> (first input index (out,), fixed-point weights (out, ksize)) of
     one axis, as Pillow's ``precompute_coeffs`` and
     ``normalize_coeffs_8bpc`` make them."""
+    kernel, base_support = _FILTERS[kind]
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
-    support = 3.0 * filterscale
+    support = base_support * filterscale
     ksize = int(math.ceil(support)) * 2 + 1
     center = (np.arange(out_size) + 0.5) * scale
     xmin = np.maximum((center - support + 0.5).astype(np.int64), 0)
     xmax = np.minimum((center + support + 0.5).astype(np.int64), in_size) \
         - xmin
     x = np.arange(ksize)
-    w = _lanczos((x[None, :] + xmin[:, None] - center[:, None] + 0.5)
-                 / filterscale)
+    w = kernel((x[None, :] + xmin[:, None] - center[:, None] + 0.5)
+               / filterscale)
     w = np.where(x[None, :] < xmax[:, None], w, 0.0)
     ww = w.sum(1, keepdims=True)
     w = np.where(ww != 0.0, w / np.where(ww != 0.0, ww, 1.0), w)
@@ -194,9 +211,10 @@ def _coeffs(in_size: int, out_size: int):
     return xmin, k
 
 
-def _resample_axis0(img: np.ndarray, out_size: int) -> np.ndarray:
+def _resample_axis0(img: np.ndarray, out_size: int,
+                    kind: str = "lanczos") -> np.ndarray:
     """Resample axis 0 of a uint8 (N, ...) array to ``out_size``."""
-    xmin, k = _coeffs(img.shape[0], out_size)
+    xmin, k = _coeffs(img.shape[0], out_size, kind)
     ksize = k.shape[1]
     src = np.concatenate([img.astype(np.int64),
                           np.zeros((ksize,) + img.shape[1:], np.int64)])
@@ -228,19 +246,29 @@ def _unpremultiply(img: np.ndarray) -> np.ndarray:
     return out
 
 
-def resize_lanczos(img: np.ndarray, width: int, height: int) -> np.ndarray:
+def resize_lanczos(img: np.ndarray, width: int, height: int,
+                   kind: str = "lanczos") -> np.ndarray:
     """Resize a uint8 (H, W), (H, W, 3) or (H, W, 4) image to
-    ``width`` x ``height`` as Pillow's LANCZOS does."""
+    ``width`` x ``height`` as Pillow's LANCZOS (or, with ``kind``
+    "bicubic", its BICUBIC) does: the horizontal pass rounded to uint8,
+    then the vertical pass."""
     h, w = img.shape[:2]
+    if (width, height) == (w, h):      # Pillow returns a copy, untouched
+        return img.copy()
     rgba = img.ndim == 3 and img.shape[2] == 4
     out = _premultiply(img) if rgba else img
     if width != w:
-        out = np.swapaxes(_resample_axis0(np.swapaxes(out, 0, 1), width),
-                          0, 1)
+        out = np.swapaxes(_resample_axis0(np.swapaxes(out, 0, 1), width,
+                                          kind), 0, 1)
     if height != h:
-        out = _resample_axis0(out, height)
+        out = _resample_axis0(out, height, kind)
     out = np.ascontiguousarray(out)
     return _unpremultiply(out) if rgba else out
+
+
+def resize_bicubic(img: np.ndarray, width: int, height: int) -> np.ndarray:
+    """Pillow's default ``Image.resize(size)`` (BICUBIC) of a uint8 image."""
+    return resize_lanczos(img, width, height, kind="bicubic")
 
 
 def to_grey(img: np.ndarray) -> np.ndarray:

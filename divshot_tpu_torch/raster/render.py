@@ -167,9 +167,11 @@ def render(
     backend: str = "pallas",
     binning: str = "pallas",
     tile_size: int = 16,
+    tile_capacity: int = 1024,
     instance_capacity: int | None = None,
     instance_capacity_mult: float = 8.0,
     max_tiles_per_gaussian: int = 64,
+    chunk: int = 32,
     eps2d: float = 0.3,
     antialiased: bool = False,
     radius_clip: float = 0.0,
@@ -184,8 +186,12 @@ def render(
 ) -> RenderOutput:
     """Differentiable render through the hand-written kernels. ``backend``
     and ``binning`` keep the JAX package's names; the port has the kernel
-    routes only: ``"pallas"`` / ``"pallas"`` (3DGS) and ``"surfel_pallas"``
-    (exact 2DGS, without the geometry planes, as in JAX).
+    routes only: ``"pallas"`` / ``"pallas"`` (3DGS, the port's default
+    where JAX's is XLA's ``"tiles"``) and ``"surfel_pallas"`` (exact 2DGS,
+    without the geometry planes, as in JAX). ``tile_capacity`` and
+    ``chunk`` belong to JAX's XLA routes; the kernel route ignores them,
+    as JAX's Pallas route does, so callers' keyword arguments pass
+    through.
 
     ``absgrad_sink`` / ``means2d_sink`` are zero (N, 2) inputs whose
     gradients harvest the AbsGS absolute and the signed screen-space
@@ -204,12 +210,13 @@ def render(
             absgrad_sink=absgrad_sink, means2d_sink=means2d_sink,
             npix_sink=npix_sink, override_colors=override_colors,
             with_geometry=False)
+    del tile_capacity, chunk
     if backend != "pallas" or binning != "pallas":
         raise NotImplementedError(
             f"render(backend={backend!r}, binning={binning!r}): the port "
             f"has only the kernel routes (pallas/pallas, surfel_pallas); "
-            f"the other backends, the XLA surfel compositor among them, "
-            f"are still to port (ROADMAP.md, Queue A)")
+            f"the other backends (tiles, dense, the XLA surfel "
+            f"compositor) are still to port (ROADMAP.md, Queue A item 8)")
     if sh_degree is None:
         sh_degree = params.sh_degree
     dev = params.device

@@ -2,8 +2,8 @@
 blocked, every module of ``divshot_tpu_torch`` imports and
 ``chip_smoke.py``'s kernel (with the backward kernels' unit split),
 viewer-path, training-path, 2DGS training-path, dataset-path,
-trainer-options, live-session and dynamic-models-and-export phases run on
-the CPU at a tiny scale,
+trainer-options, live-session, dynamic-models-and-export and editor
+phases run on the CPU at a tiny scale,
 with a ``kernels`` record for every kernel. Also checks on the port's
 files: no JAX, flax, PIL, imageio or ``divshot_tpu`` import outside
 docstrings, no file over 200 KB, and the kernel build directory ignored by
@@ -44,6 +44,7 @@ with contextlib.redirect_stdout(buf):
     live = chip_smoke.phase_session(dev, chip_smoke.TINY)
     chip_smoke.drop_bricks()
     dyn = chip_smoke.phase_dynamic_export(dev, chip_smoke.TINY)
+    ed = chip_smoke.phase_editor(dev, chip_smoke.TINY)
 out = buf.getvalue()
 assert '"ok"' not in out, out
 assert all(v == 0.0 for v in checks.values()), checks
@@ -125,7 +126,22 @@ assert exp["kmeans_update_rel"] == 0.0 and exp["kmeans_id_ties"] == 0
 assert exp["kmeans_end_to_end_rel"] == 0.0
 assert exp["kmeans_end_to_end_ids"] == 0
 assert "(c) mesh: 2 views at 512, resolution 12" in out
-for r in records + train + train2d + data + opts + live + dyn:
+assert [r["name"] for r in ed] == ["expand", "forward"]
+assert all(r["scene"].startswith("editor_tint_") for r in ed)
+assert all(r["op_ms"]["merge"] > 0 and r["apps"]["jpeg_ms_per_frame"] > 0
+           and set(r["dense_ms"]) == {"RINGS", "ELLIPSOIDS", "CENTERS",
+                                      "POINT"} for r in ed)
+assert all(r["apps"]["app_capacity"] == 1 << 20 and set(r["scene_parts_ms"])
+           == {"grade+crop", "crop mask", "transform", "render",
+               "second entity", "plate", "whole frame"} for r in ed)
+assert "(b) the SPLAT scene frame's parts, each timed alone" in out
+assert ("three undos and three redos, each bitwise the params and state "
+        "it restores") in out
+assert "(c) apps.render --video: launches" in out
+assert "(c) apps.render --fast --video: launches" in out
+assert "AVIs of 3 00dc frames, idx1 pointing at each, SOI / EOI" in out
+assert "(d) apps.edit with 8 ops and a merge" in out
+for r in records + train + train2d + data + opts + live + dyn + ed:
     assert keys <= set(r), r
     assert r["route"] == "cuda" and r["library_ms"] is None
     assert r["max_abs_err"] == 0.0 and r["bound_ms"] > 0

@@ -605,11 +605,15 @@ def test_render_app_fast_path(tmp_path):
 
 def test_render_app_unported_options(tmp_path):
     _write_ply(tmp_path / "m.ply", 10, np.random.default_rng(2))
-    with pytest.raises(NotImplementedError, match="--fast"):
-        app.main(["--model", str(tmp_path / "m.ply"), "--device", CPU])
-    with pytest.raises(NotImplementedError, match="--video"):
-        app.main(["--model", str(tmp_path / "m.ply"), "--fast",
-                  "--video", "x.avi", "--device", CPU])
+    # the non-fast path and --video are ported; XLA's backends are not
+    with pytest.raises(NotImplementedError, match="Queue A item 8"):
+        app.main(["--model", str(tmp_path / "m.ply"), "--backend", "tiles",
+                  "--out", str(tmp_path / "shots"), "--device", CPU])
+    assert app.main(["--model", str(tmp_path / "m.ply"), "--orbit", "1",
+                     "--width", "16", "--height", "16", "--out",
+                     str(tmp_path / "shots"), "--video",
+                     str(tmp_path / "x.avi"), "--device", CPU]) == 0
+    assert (tmp_path / "x.avi").read_bytes()[:4] == b"RIFF"
     # the other formats are ported now: a four-byte file fails as each
     # format's reader fails on it (JAX's alike), or holds no splat
     import gzip
