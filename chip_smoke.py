@@ -129,13 +129,13 @@ Phases, each a function of ``(device, scale)``:
    the three kernels against their plain versions on the trained state
    deformed to view 0's time, and each model type's it/s beside the
    static train cell's (5(b)); (c) the repo's trained model, every
-   second splat (131,072), through
+   splat (262,144), through
    ``apps.export`` to ``.compressed.ply``, ``.reduced.ply``, ``.splat``,
    ``.spz`` and ``.dvsplat`` and back, each reload rendered finite
    through ``render_fast`` with its PSNR against the float model's frame;
    the reduced export's k-means on the card against the CPU (centres
    within 1e-5 of each job's range, ids equal but at distance ties,
-   counted); ``apps.export --output mesh.obj`` (24 views at 512,
+   counted); ``apps.export --output mesh.obj`` (12 views at 512,
    resolution 128: vertices and faces, indices in range, one launch of
    expand and forward a view) and those two kernels against their plain
    versions at the depth render's shapes. Each save, load and
@@ -154,15 +154,30 @@ Phases, each a function of ``(device, scale)``:
    1920x1080: the launches of expand and forward counted (one each an
    entity and a frame), the two kernels against their plain versions on
    the tint frame (``editor_tint_*`` records); the dense debug modes
-   (RINGS, ELLIPSOIDS, CENTERS, POINT) on a 20K-splat entity at the same
-   frame, timed; (c) the edited model written as a PLY, ``apps.render``
+   (RINGS, ELLIPSOIDS, CENTERS, POINT) on a 20K-splat entity at half the
+   frame (960x540), timed, with their ns a splat-pixel pair; (c) the
+   edited model written as a PLY, ``apps.render``
    with ``--orbit 12 --width 1280 --height 720 --video`` and with
    ``--fast --video``: the PNGs, each AVI read back through its ``idx1``
    (12 ``00dc`` frames, each a JPEG from SOI to EOI), the launches (one
    each a view), the port's JPEG encoder's ms a frame; ``render_taa`` of 8
    frames and ``post_process`` on one view; (d) ``apps.edit`` with
    ``--op``s, ``--merge``, ``--html`` and ``--output`` on that PLY, the
-   output's splat count against an ``EditSession`` given the same ops.
+   output's splat count against an ``EditSession`` given the same ops;
+12. the routes of ``render()`` other than the kernel route
+   (``chip_smoke_routes.py``): (a) one render forward + backward on the
+   train cell of 5(b) through the kernel route, ``binning="xla"`` (the
+   forward and backward kernels once each, expand never, both held
+   against their plain versions: ``xla_*`` records) and ``"tiles"``, and
+   ``"dense"`` on 11(b)'s dense entity at 400x400, each against the
+   kernel route; (b) ``render_fast(binning="xla")`` on 4's random 1M at
+   1920x1080 beside the kernel-binned frame; (c) the loss bars of (5(a),
+   6(a)) through ``"tiles"`` and ``"surfel"``, and MCMC with the
+   normal-consistency loss through ``"tiles"``; (d) the XLA surfel route
+   against the surfel kernels on 6(b)'s train2d cell, with the planes;
+   (e) ``apps.render --backend tiles --orbit 2`` at 1280x720 on 11(c)'s
+   edited model, with the densest tile and the tiles past JAX's
+   ``tile_capacity`` of 1024.
 
 Both compositing routes, 3DGS and surfels, go through one harness
 (``Route``, ``Frame``, ``kernel_records``, ``stage_times``). It prints
@@ -443,24 +458,30 @@ class Scale:
     #                       model's, the dense debug entity's, apps.render's
     #                       width, height and orbit views, render_taa's
     #                       frames)
+    routes: tuple         # phase 12: (the dense route's frame size,
+    #                       apps.render --backend tiles' width, height and
+    #                       orbit views, the steps of the 3DGS and the 2DGS
+    #                       loss bars and of the normal-loss run)
 
 
-FULL = Scale(1920, 1080, 4, 1, 1_000_000, 1 << 24, 50_000, 512, 6,
+FULL = Scale(1920, 1080, 4, 1, 1_000_000, 1 << 24, 50_000, 512, 4,
              150, 50_000, 100_000, 1 << 17, 800, 4, 30, 12, 60,
              800, (24, 8), 262_144, 100, 50, (25, 30, 25),
              6, 4, (100, 40, 25, 50, 20, 10), 5,
              (20_000, 32, 400, 0), (150, 50, 15, 3, 20, 50),
              (48, 5, 150, 300), (20_000, 800, 4, 8, 8), (60, 30, 262_144),
-             (800, 24, 128, 1 << 13),
-             (1_000_000, 250_000, 20_000, 1280, 720, 12, 8))
+             (800, 12, 128, 1 << 13),
+             (1_000_000, 250_000, 20_000, 1280, 720, 12, 8),
+             (400, 1280, 720, 2, 150, 60, 20))
 TINY = Scale(64, 48, 1, 512, 1_500, 1 << 16, 400, 64, 1,
              3, 300, 500, 1 << 10, 64, 2, 2, 0, 3,
              32, (3, 2), 1024, 12, 8, (4, 4, 3),
              2, 2, (12, 6, 3, 4, 3, 2), 3,
-             (300, 2, 32, 1024), (12, 3, 2, 2, 2, 3),
+             (300, 2, 32, 1024), (9, 3, 2, 1, 2, 3),
              (32, 2, 3, 3), (300, 32, 2, 2, 2), (4, 2, 1024),
              (32, 2, 12, 1 << 10),
-             (2_000, 500, 300, 64, 48, 3, 2))
+             (2_000, 500, 300, 64, 48, 3, 2),
+             (32, 64, 48, 2, 1, 1, 1))
 
 
 def log(msg: str) -> None:
@@ -503,6 +524,10 @@ def time_ms(fn, device: torch.device, iters: int, warmup: int = 1) -> float:
 # phase 1 and 2
 
 
+# the card's identity, as phase 1 reads it (phase 12 prints it per line)
+CARD: dict = {}
+
+
 def phase_identity(device: torch.device, scale: Scale) -> dict:
     if device.type != "cuda" or not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py needs an NVIDIA "
@@ -518,7 +543,8 @@ def phase_identity(device: torch.device, scale: Scale) -> dict:
     log(f"  device {name}; count {torch.cuda.device_count()}; "
         f"nvidia-smi: {smi}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}")
-    return {"kind": name, "count": torch.cuda.device_count(), "smi": smi}
+    CARD.update(kind=name, count=torch.cuda.device_count(), smi=smi)
+    return dict(CARD)
 
 
 def phase_build(device: torch.device, scale: Scale) -> float:
@@ -572,12 +598,13 @@ def check_forward(route: Route, table, tile_start, width: int, height: int,
     """Forward kernel vs plain version: bitwise equal, and a second launch
     bitwise equal to the first -> (max abs err, the data's pair counts,
     instances the data needs read: per tile, up to its last pixel's
-    stop)."""
+    stop, the ms of the plain version's call, its pair counting
+    included)."""
     kw = dict(width=width, height=height, nch=nch)
     out_k = route.fwd(table, tile_start, **kw)
     again = route.fwd(table, tile_start, **kw)
-    out_p, counts, reach = route.fwd_plain(table, tile_start,
-                                           count_pairs=True, **kw)
+    (out_p, counts, reach), plain_ms = timed(lambda: route.fwd_plain(
+        table, tile_start, count_pairs=True, **kw), table.device)
     err = float((out_k - out_p).abs().max())
     if not (bool(torch.isfinite(out_k).all())
             and torch.equal(out_k, out_p)):
@@ -585,7 +612,7 @@ def check_forward(route: Route, table, tile_start, width: int, height: int,
                              f"err {err}")
     if not torch.equal(out_k, again):
         raise AssertionError(f"{route.forward}: two launches differ")
-    return err, counts, int(reach.sum())
+    return err, counts, int(reach.sum()), plain_ms
 
 
 def check_survivors(route: Route, table, tile_start, width: int,
@@ -641,8 +668,8 @@ def check_backward(route: Route, table, tile_start, fwd, cot, width: int,
     n = int(tile_start[-1])
     gk = route.bwd(table, tile_start, cot, fwd, **kw)[:, :n]
     again = route.bwd(table, tile_start, cot, fwd, **kw)[:, :n]
-    gp, sums = route.bwd_plain(table, tile_start, cot, fwd, abs_sums=True,
-                               **kw)
+    (gp, sums), plain_ms = timed(lambda: route.bwd_plain(
+        table, tile_start, cot, fwd, abs_sums=True, **kw), table.device)
     gp, sums = gp[:, :n], sums[:, :n]
     what = route.backward
     if not (bool(torch.isfinite(gk).all())
@@ -675,7 +702,8 @@ def check_backward(route: Route, table, tile_start, fwd, cot, width: int,
     big = (gp.abs() > 1e3 * floor[:, None]) & (floor[:, None] > 0)
     return dict(max_abs_err=float(diff.max()) if n else 0.0,
                 row_rel=row_rel, scale_rel=scale_rel,
-                outlier_cols=int(big.any(0).sum()), npix=gp[-1])
+                outlier_cols=int(big.any(0).sum()), npix=gp[-1],
+                plain_ms=plain_ms)
 
 
 def _nan_prep(p: B.Prep) -> B.Prep:
@@ -802,7 +830,8 @@ def phase_kernels_vs_plain(device: torch.device, scale: Scale) -> dict:
                              proj.radii, proj.radii_xy, proj.rad2, cols,
                              opac, width=w, height=h, instance_capacity=cap)
         table = _nan_table(sb.table, sb.tile_start)
-        fw_err, _, _ = check_forward(GAUSS, table, sb.tile_start, w, h, nch)
+        fw_err, _, _, _ = check_forward(GAUSS, table, sb.tile_start, w, h,
+                                        nch)
         out["forward_err"] = max(out.get("forward_err", 0.0), fw_err)
         fwd = R.rasterize_forward(table, sb.tile_start, width=w, height=h,
                                   nch=nch)
@@ -950,7 +979,7 @@ def unit_split_check(route: Route, nch: int, device) -> dict:
     w = h = 32
     table, tile_start, planted, hitters, starts = unit_split_frame(
         route, nch, device)
-    fw_err, _, _ = check_forward(route, table, tile_start, w, h, nch)
+    fw_err, _, _, _ = check_forward(route, table, tile_start, w, h, nch)
     cull = check_survivors(route, table, tile_start, w, h, route.forward)
     log(f"  {route.forward} unit split: bitwise equal to plain and "
         f"deterministic; survivor mask equal to plain on its "
@@ -1221,10 +1250,13 @@ def loss_cotangent(fr: Frame, loss_fn) -> torch.Tensor:
 def kernel_records(scene: str, fr: Frame, device: torch.device,
                    scale: Scale, launches: dict, *, cot=None,
                    per_step: int | None = None, backward_only: bool = False,
-                   **bkw) -> list[dict]:
+                   expand: bool = True, **bkw) -> list[dict]:
     """Expand and the route's kernels against their plain versions at this
-    frame's shapes, with their times, the plain versions' times and their
-    bounds: expand and forward unless ``backward_only``, and the backward
+    frame's shapes, with their times, the plain versions' times (the
+    checks' own calls: the forward's with its pair counting, the
+    backward's with the magnitudes of its terms) and their bounds: expand (unless ``expand`` is False: a frame binned by
+    ``tiles.bin_gaussians``) and forward unless ``backward_only``, and the
+    backward
     (with ``bkw``) on the cotangent tiles ``cot`` when given, after its
     schedule on the card is held against its plain version. One record per
     kernel, tagged with the scene."""
@@ -1234,8 +1266,8 @@ def kernel_records(scene: str, fr: Frame, device: torch.device,
     kw = dict(width=w, height=h, nch=nch)
     it = scale.timing_iters * 5
     # the forward's check also counts the pairs that the bounds charge
-    fw_err, counts, reads = check_forward(route, table, tile_start, w, h,
-                                          nch)
+    fw_err, counts, reads, fw_plain = check_forward(route, table,
+                                                    tile_start, w, h, nch)
     cull = {} if backward_only else check_survivors(route, table,
                                                     tile_start, w, h, scene)
     n = fr.pp.u.shape[0]
@@ -1246,7 +1278,7 @@ def kernel_records(scene: str, fr: Frame, device: torch.device,
     # the instance rows this data needs read (each tile up to its last
     # pixel's stop) and the tile ranges
     read_bytes = reads * (route.inst_rows + nch) * 4 + (num_tiles + 1) * 4
-    rows = [] if backward_only else [
+    rows = [] if backward_only or not expand else [
         ("expand", check_expand(fr.pp, cap, w, h)["max_abs_err"],
          time_ms(lambda: B.expand_instances(fr.pp, cap, width=w, height=h),
                  device, it),
@@ -1254,11 +1286,11 @@ def kernel_records(scene: str, fr: Frame, device: torch.device,
              fr.pp, cap, width=w, height=h), device, 1, warmup=0),
          # the 9 fields of each gaussian that owns instances, and every
          # slot's key and owner
-         owning * 9 * 4 + cap * 8, 0),
+         owning * 9 * 4 + cap * 8, 0)]
+    rows += [] if backward_only else [
         (route.forward, fw_err,
          time_ms(lambda: route.fwd(table, tile_start, **kw), device, it),
-         time_ms(lambda: route.fwd_plain(table, tile_start, **kw), device, 1,
-                 warmup=0),
+         fw_plain,
          read_bytes + 8 * tile_bytes, route.fwd_ops(counts, nch),
          {"longest_tile": int((tile_start[1:] - tile_start[:-1]).max()),
           **cull}),
@@ -1274,9 +1306,7 @@ def kernel_records(scene: str, fr: Frame, device: torch.device,
             route.backward, chk["max_abs_err"],
             time_ms(lambda: route.bwd(table, tile_start, cot, fwd, **kw,
                                       **bkw), device, it),
-            time_ms(lambda: route.bwd_plain(table, tile_start, cot, fwd,
-                                            **kw, **bkw),
-                    device, 1, warmup=0),
+            chk["plain_ms"],
             read_bytes + (2 * nch + route.tile_rows) * tile_bytes
             + kept * (route.grad_rows + nch) * 4,
             route.bwd_ops(counts, nch, **bkw),
@@ -1797,8 +1827,8 @@ def surfel_kernels_vs_plain(params, cam, device: torch.device) -> dict:
     for nch in (3, 5):
         fr = make_frame(params, cam, cap, route=SURFEL, geometry=nch == 5)
         table, planted = _degenerate_surfels(fr.table, fr.tile_start, w)
-        err, counts, _ = check_forward(SURFEL, table, fr.tile_start, w, h,
-                                       nch)
+        err, counts, _, _ = check_forward(SURFEL, table, fr.tile_start, w,
+                                          h, nch)
         out["surfel_forward_err"] = max(out.get("surfel_forward_err", 0.0),
                                         err)
         fwd = SR.surfel_forward(table, fr.tile_start, width=w, height=h,
@@ -3568,17 +3598,23 @@ def editor_scene(device: torch.device, scale: Scale, sess, other, cam):
     dense_ms = {}
     small = random_scene(np.random.default_rng(12), scale.editor[2],
                          sh_degree=3, device=device)
+    # O(N pixels): at half the frame, timed per splat-pixel pair too
+    dcam = scaled_camera(cam, 2)
     for mode in ("RINGS", "ELLIPSOIDS", "CENTERS", "POINT"):
         c = SC.GaussianComponent(params=small,
                                  render_type=SC.GaussianRenderType[mode])
         (img, alpha), dense_ms[mode] = timed(
-            lambda: SR_SCENE.render_component(c, cam), device)
+            lambda: SR_SCENE.render_component(c, dcam), device)
         _check_frame(img, alpha, f"(b) {mode}")
+    pairs = scale.editor[2] * dcam.width * dcam.height
+    dense_ns = {k: v * 1e6 / pairs for k, v in dense_ms.items()}
     log(f"  (b) dense debug modes, {scale.editor[2]} splats at "
-        f"{cam.width}x{cam.height}: " + ", ".join(
-            f"{k} {v:.1f} ms" for k, v in dense_ms.items()))
+        f"{dcam.width}x{dcam.height}: " + ", ".join(
+            f"{k} {dense_ms[k]:.1f} ms ({dense_ns[k]:.4f} ns a splat-pixel "
+            f"pair)" for k in dense_ms))
     for r in recs:
-        r.update(editor_ms=ms, dense_ms=dense_ms, scene_parts_ms=parts)
+        r.update(editor_ms=ms, dense_ms=dense_ms, dense_ns_per_pair=dense_ns,
+                 scene_parts_ms=parts)
     return recs
 
 
@@ -3741,12 +3777,17 @@ def editor_apps(device: torch.device, scale: Scale, sess, cam) -> dict:
     return out
 
 
+# phase 11's edited model, which phase 12(e) renders on the tiles route
+EDITED: dict = {}
+
+
 def phase_editor(device: torch.device, scale: Scale) -> list[dict]:
     """Phase 11: (a) the edit session, (b) the scene's frames through
     expand and forward, (c) ``apps.render`` with video, post and TAA, (d)
     ``apps.edit``."""
     t0 = time.perf_counter()
     sess, other, cam, op_ms = editor_session(device, scale)
+    EDITED["params"] = sess.visible_params()
     log(f"  (a) done in {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     recs = editor_scene(device, scale, sess, other, cam)
@@ -3757,6 +3798,13 @@ def phase_editor(device: torch.device, scale: Scale) -> list[dict]:
     for r in recs:
         r.update(op_ms=op_ms, apps=apps)
     return recs
+
+
+def phase_routes(device: torch.device, scale: Scale) -> list[dict]:
+    """Phase 12, the routes of ``render()`` other than the kernel route
+    (``chip_smoke_routes.py``)."""
+    import chip_smoke_routes
+    return chip_smoke_routes.phase_routes(device, scale)
 
 
 # --------------------------------------------------------------------------
@@ -3795,6 +3843,7 @@ def main() -> int:
             and not r["scene"].startswith("dyn_bars")))
     records += dyn
     records += run("11 the editor side", phase_editor)
+    records += run("12 the XLA routes", phase_routes)
     log(f"all phases ok in {time.perf_counter() - t_all:.2f} s")
     print(json.dumps({"kernels": records}))
     print(ident["smi"] or f"{ident['kind']}, power limit not readable")
@@ -3805,4 +3854,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    # phase 12's module imports this one by name: one module, not two
+    sys.modules.setdefault("chip_smoke", sys.modules[__name__])
     sys.exit(main())

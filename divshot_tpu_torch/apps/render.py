@@ -6,9 +6,11 @@ to numbered PNGs and, with ``--video``, an MJPEG AVI.
       --orbit 24 --width 800 --height 600 [--fast] [--video fly.avi]
 
 Without ``--fast`` the views go through ``viewer/offline.render_views``
-(``render`` on the kernel route); ``--fast`` through ``render_fast``.
-``--backend`` defaults to ``"pallas"``, the port's only 3DGS route (JAX's
-default is XLA's ``"tiles"``, which the port does not have yet).
+(``render`` on the route ``--backend`` names: ``"pallas"``, the kernel
+route and the port's default, or JAX's ``"tiles"``, its default,
+``"dense"`` and ``"surfel"``); ``--fast`` through ``render_fast``. As in
+JAX, the ``"tiles"`` route keeps at most ``tile_capacity`` (1024)
+instances a tile and drops the farthest past it.
 
 JAX's app bins into a fixed 2^20 instances and drops the rest; the port
 keeps 2^20 as the least capacity and grows it to the views' largest

@@ -322,7 +322,9 @@ def make_dynamic_train_step(cfg, dataset, net: nn.Module,
     """-> (``init_fn(params, seed) -> DynTrainState``, ``step_fn(state,
     view_idx, hypers=None) -> (state, metrics)``). ``dataset.times`` (V,)
     in [0, 1] gives each view's time (the D-NeRF layout). The render
-    route is the kernels' (``"pallas"``), whatever the platform."""
+    route is the kernels' (``"pallas"``), whatever the platform, unless
+    ``render_kwargs`` name another of ``render``'s (``"tiles"``, JAX's
+    route off the TPU, ``"dense"``, ``binning="xla"``)."""
     from divshot_tpu_torch.raster.render import render
     from divshot_tpu_torch.train import strategy as S
     from divshot_tpu_torch.train.losses import photometric_loss, psnr
@@ -423,7 +425,9 @@ def make_dynamic_train_step(cfg, dataset, net: nn.Module,
             metrics = {"loss": loss.detach(),
                        "psnr": psnr(out.image.detach(), gt),
                        "num_alive": params.alive.sum(),
-                       "num_instances": out.num_instances}
+                       "num_instances": out.num_instances
+                       if out.num_instances is not None
+                       else torch.zeros((), dtype=torch.int32, device=dev)}
         return DynTrainState(params=params, opt=opt, dstate=dstate,
                              net=state.net, net_opt=net_opt,
                              gen=state.gen), metrics

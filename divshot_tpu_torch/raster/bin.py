@@ -33,7 +33,8 @@ from typing import NamedTuple
 import torch
 
 from divshot_tpu_torch import _build
-from divshot_tpu_torch.raster.raster import build_feature_table
+from divshot_tpu_torch.raster.raster import (build_feature_table,
+                                             grad_fields, segment_rows)
 
 # the unsigned key word w is stored as w - 2^31 (its top bit flipped)
 KEY_BIAS = 1 << 31
@@ -298,32 +299,12 @@ def segment_rows_sorted(grads: torch.Tensor, bins: SortedBins,
                         rows) -> torch.Tensor:
     """Per-instance rows in sorted order -> (len(rows), N) per-gaussian
     sums of ``grads[rows]`` (counterpart of
-    ``pallas_bin.segment_rows_sorted``).
-
-    Columns at or past ``tile_start[-1]`` (culled instances and the
-    capacity tail, never written by a kernel) are zeroed; the rows are
-    gathered back to expansion order through the inverse of the sort's
-    permutation (no float atomics, so the result is deterministic); each
-    gaussian's instances are then contiguous, and its sum is the
-    end-of-segment difference ``E[g] - E[g-1]`` of one float32 cumsum per
-    row (each row scanned as one 1-D tensor: a scan along the last axis of
-    a few long rows runs one block per row on the card)."""
-    icap = grads.shape[1]
-    dev = grads.device
-    zero = torch.zeros((), device=dev)
-    live = torch.arange(icap, device=dev) < bins.tile_start[-1]
-    sel = (grads[rows.start:rows.stop:rows.step] if isinstance(rows, range)
-           else grads[list(rows)])
-    g = torch.where(live[None, :], sel, zero)
+    ``pallas_bin.segment_rows_sorted``), by ``raster.segment_rows`` over
+    the inverse of the sort's permutation."""
     inv = torch.empty_like(bins.perm)
-    inv[bins.perm] = torch.arange(icap, device=dev)
-    ge = torch.index_select(g, 1, inv)
-    cs = torch.stack([torch.cumsum(row, 0) for row in ge])
-    hi = (bins.g_offsets + bins.g_counts - 1).long()
-    e = torch.where(hi[None, :] >= 0, cs[:, torch.clamp(hi, 0, icap - 1)],
-                    zero)
-    e_prev = torch.cat([e.new_zeros((len(g), 1)), e[:, :-1]], 1)
-    return torch.where((bins.g_counts > 0)[None, :], e - e_prev, zero)
+    inv[bins.perm] = torch.arange(grads.shape[1], device=grads.device)
+    return segment_rows(grads, bins.tile_start, inv, bins.g_offsets,
+                        bins.g_counts, rows)
 
 
 def reduce_grads_sorted(grads: torch.Tensor, bins: SortedBins, *,
@@ -334,12 +315,5 @@ def reduce_grads_sorted(grads: torch.Tensor, bins: SortedBins, *,
 
     -> dict(means2d (N, 2), conics (N, 3), colors (N, nch), opacity (N,),
     absgrad (N, 2), npix (N,))."""
-    seg = segment_rows_sorted(grads, bins, range(9 + nch))
-    return {
-        "means2d": seg[0:2].T,
-        "conics": seg[2:5].T,
-        "opacity": seg[5],
-        "colors": seg[6:6 + nch].T,
-        "absgrad": seg[6 + nch:8 + nch].T,
-        "npix": seg[8 + nch],
-    }
+    return grad_fields(segment_rows_sorted(grads, bins, range(9 + nch)),
+                       nch)

@@ -17,6 +17,13 @@ pass of its own, spread over the card, and then walks only their
 surviving pairs (``raster/units.py``); ``kernel_mask`` gives that pass's
 survivor mask on the card, ``rasterize_forward_plain(survivors=...)`` the
 walk from its plain version.
+
+``rasterize_pallas`` is the differentiable raster over bins made by
+``tiles.bin_gaussians`` (JAX's ``binning="xla"``; ``RasterPallas``, the
+counterpart of ``pallas_raster._make_raster``): its forward gathers the
+table and runs the forward kernel, its backward runs the backward kernel
+and ``reduce_instance_grads``, the per-gaussian segment sums over the
+binning's ``exp2sorted``, ``g_offsets`` and ``g_counts``.
 """
 
 from __future__ import annotations
@@ -517,3 +524,175 @@ def _backward_chunk_rows(grads, cols, valid, f, dx, dy, s, alpha, g, cf,
                 + list(torch.einsum("cap,apk->cak", g.abs(), w)) + absgrad
                 + npix)
         sums[:, cols[valid]] = torch.stack(rows, 0)[:, valid]
+
+
+# ---------------------------------------------------------------------------
+# the differentiable raster over XLA-binned instances
+
+
+def segment_rows(grads: torch.Tensor, tile_start: torch.Tensor,
+                 exp2sorted: torch.Tensor, g_offsets: torch.Tensor,
+                 g_counts: torch.Tensor, rows) -> torch.Tensor:
+    """Per-instance rows in sorted order -> (len(rows), N) per-gaussian
+    sums of ``grads[rows]``, without float atomics.
+
+    Columns at or past ``tile_start[-1]`` (culled instances and the
+    capacity tail, never written by a kernel) are zeroed; the rows are
+    gathered back to expansion order through ``exp2sorted`` (expansion
+    slot -> sorted position), where each gaussian's instances are
+    contiguous, and its sum is the end-of-segment difference ``E[g] -
+    E[g-1]`` of one float32 cumsum per row (each row scanned as one 1-D
+    tensor: a scan along the last axis of a few long rows runs one block
+    per row on the card)."""
+    icap = grads.shape[1]
+    dev = grads.device
+    zero = torch.zeros((), device=dev)
+    live = torch.arange(icap, device=dev) < tile_start[-1]
+    sel = (grads[rows.start:rows.stop:rows.step] if isinstance(rows, range)
+           else grads[list(rows)])
+    g = torch.where(live[None, :], sel, zero)
+    ge = torch.index_select(g, 1, exp2sorted.long())
+    cs = torch.stack([torch.cumsum(row, 0) for row in ge])
+    hi = (g_offsets + g_counts - 1).long()
+    e = torch.where(hi[None, :] >= 0, cs[:, torch.clamp(hi, 0, icap - 1)],
+                    zero)
+    e_prev = torch.cat([e.new_zeros((len(g), 1)), e[:, :-1]], 1)
+    return torch.where((g_counts > 0)[None, :], e - e_prev, zero)
+
+
+def grad_fields(seg: torch.Tensor, nch: int) -> dict[str, torch.Tensor]:
+    """The 3DGS backward's (9 + nch) summed rows by name."""
+    return {
+        "means2d": seg[0:2].T,
+        "conics": seg[2:5].T,
+        "opacity": seg[5],
+        "colors": seg[ROW_CH:ROW_CH + nch].T,
+        "absgrad": seg[6 + nch:8 + nch].T,
+        "npix": seg[8 + nch],
+    }
+
+
+def reduce_instance_grads(grads: torch.Tensor, tile_start: torch.Tensor,
+                          exp2sorted: torch.Tensor, g_offsets: torch.Tensor,
+                          g_counts: torch.Tensor, nch: int = 3
+                          ) -> dict[str, torch.Tensor]:
+    """The backward kernel's rows (9 + nch, I), in the sorted order of
+    ``tiles.bin_gaussians``, -> per-gaussian sums (counterpart of
+    ``pallas_raster.reduce_instance_grads``; the port's kernel writes no
+    boundary blocks, so there are none to add): dict(means2d (N, 2),
+    conics (N, 3), colors (N, nch), opacity (N,), absgrad (N, 2), npix
+    (N,))."""
+    return grad_fields(segment_rows(grads, tile_start, exp2sorted,
+                                    g_offsets, g_counts, range(9 + nch)),
+                       nch)
+
+
+def split_tiles(out: torch.Tensor, background: torch.Tensor, width: int,
+                height: int, tile_size: int, nch: int):
+    """(T, 8, px) forward rows -> (image (H, W, nch) with the background on
+    its first three channels, transmittance (H, W))."""
+    tiles_x, tiles_y = _grid(width, height, tile_size)
+    img = _tiles_to_image(out[:, 0:nch], tiles_x, tiles_y, tile_size,
+                          width, height)
+    t_px = _tiles_to_image(out[:, ROW_T:ROW_T + 1], tiles_x, tiles_y,
+                           tile_size, width, height)[..., 0]
+    bg = background if nch == 3 else torch.cat(
+        [background, background.new_zeros((nch - 3,))])
+    return img + t_px[..., None] * bg[None, None, :], t_px
+
+
+def tile_cotangent(g_img, g_alpha, background: torch.Tensor, width: int,
+                   height: int, tile_size: int, nch: int) -> torch.Tensor:
+    """The image's and alpha's cotangents (None: zero) -> the backward
+    kernel's (T, 8, px) cotangent rows: the channels', and in row 7 dL/dT,
+    which enters through the background composite (+g_rgb . bg) and alpha
+    = 1 - T (-g_alpha), with the sign the kernel folds in."""
+    if g_img is None:
+        g_img = background.new_zeros((height, width, nch))
+    if g_alpha is None:
+        g_alpha = background.new_zeros((height, width))
+    g_t = g_alpha - torch.einsum("hwc,c->hw", g_img[..., :3], background)
+    cot_img = torch.cat([g_img, g_img.new_zeros((*g_img.shape[:2],
+                                                 MAX_CH - nch)),
+                         g_t[..., None]], -1)
+    tiles_x, tiles_y = _grid(width, height, tile_size)
+    return _image_to_tiles(cot_img, tiles_x, tiles_y, tile_size).contiguous()
+
+
+class RasterArgs(NamedTuple):
+    """The static arguments of ``RasterPallas``."""
+    width: int
+    height: int
+    tile_size: int
+    t_eps: float
+    with_absgrad: bool
+
+
+class RasterPallas(torch.autograd.Function):
+    """Compositing of binned instances with the analytic VJP. Inputs
+    ``means2d (N, 2)``, ``conics (N, 3)``, ``colors (N, nch)`` (nch <= 7,
+    rgb first), ``opacities (N,)``, ``background (3,)``, the zero sinks
+    ``absgrad_sink (N, 2)`` / ``npix_sink (N,)`` (their gradients are the
+    AbsGS sums and the pixel counts), and the binning's ``inst_gauss``,
+    ``tile_start``, ``exp2sorted``, ``g_offsets`` and ``g_counts``, which
+    get no gradient -> (image (H, W, nch), alpha (H, W))."""
+
+    @staticmethod
+    def forward(ctx, means2d, conics, colors, opacities, background,
+                absgrad_sink, npix_sink, inst_gauss, tile_start, exp2sorted,
+                g_offsets, g_counts, cfg: RasterArgs):
+        del absgrad_sink, npix_sink
+        nch = colors.shape[1]
+        table = build_feature_table(means2d, conics, colors, opacities,
+                                    inst_gauss)
+        out = rasterize_forward(table, tile_start, width=cfg.width,
+                                height=cfg.height, tile_size=cfg.tile_size,
+                                nch=nch, t_eps=cfg.t_eps)
+        img, t_px = split_tiles(out, background, cfg.width, cfg.height,
+                                cfg.tile_size, nch)
+        ctx.cfg, ctx.nch = cfg, nch
+        ctx.save_for_backward(table, out, background, t_px, tile_start,
+                              exp2sorted, g_offsets, g_counts)
+        return img, 1.0 - t_px
+
+    @staticmethod
+    def backward(ctx, g_img, g_alpha):
+        (table, out, background, t_px, tile_start, exp2sorted, g_offsets,
+         g_counts) = ctx.saved_tensors
+        cfg, nch = ctx.cfg, ctx.nch
+        cot = tile_cotangent(g_img, g_alpha, background, cfg.width,
+                             cfg.height, cfg.tile_size, nch)
+        grads = rasterize_backward(
+            table, tile_start, cot, out, width=cfg.width, height=cfg.height,
+            tile_size=cfg.tile_size, nch=nch, t_eps=cfg.t_eps,
+            with_absgrad=cfg.with_absgrad)
+        g = reduce_instance_grads(grads, tile_start, exp2sorted, g_offsets,
+                                  g_counts, nch=nch)
+        d_bg = (None if g_img is None
+                else torch.einsum("hwc,hw->c", g_img[..., :3], t_px))
+        return (g["means2d"], g["conics"], g["colors"], g["opacity"], d_bg,
+                g["absgrad"], g["npix"], None, None, None, None, None, None)
+
+
+def rasterize_pallas(means2d, conics, colors, opacities, bins, *,
+                     width: int, height: int, tile_size: int = 16,
+                     background=None, absgrad_sink=None, npix_sink=None,
+                     t_eps: float = T_EPS, with_absgrad: bool = True):
+    """Differentiable raster through the forward and backward kernels over
+    ``bins``, a ``tiles.TileBins`` made without the id matrix ->
+    (image (H, W, nch), alpha (H, W)). ``colors`` may carry up to 7
+    channels (rgb first); ``with_absgrad=False`` leaves the AbsGS rows of
+    the backward at zero."""
+    dev = means2d.device
+    n = means2d.shape[0]
+    if background is None:
+        background = torch.zeros((3,), device=dev)
+    if absgrad_sink is None:
+        absgrad_sink = torch.zeros((n, 2), device=dev)
+    if npix_sink is None:
+        npix_sink = torch.zeros((n,), device=dev)
+    cfg = RasterArgs(width, height, tile_size, t_eps, bool(with_absgrad))
+    return RasterPallas.apply(
+        means2d, conics, colors, opacities, background, absgrad_sink,
+        npix_sink, bins.inst_gauss, bins.tile_start, bins.exp2sorted,
+        bins.g_offsets, bins.g_counts, cfg)

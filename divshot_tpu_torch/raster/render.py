@@ -1,19 +1,35 @@
 """Top-level render: params + camera -> image (counterpart of
 ``divshot_tpu/raster/render.py``).
 
-``render`` is the differentiable training path, the JAX ``render`` with
-``backend="pallas"`` and ``binning="pallas"``: projection and SH colour in
-PyTorch autograd, then one ``torch.autograd.Function`` (``RasterBinned``,
-the counterpart of ``pallas_raster._make_raster_binned``) whose forward runs
-the expand kernel, the sort, the feature gather and the forward kernel, and
-whose backward runs the backward kernel and the per-gaussian reduce.
-``backend="surfel_pallas"`` renders exact-2DGS surfels instead
-(``surfel_raster.render_surfels``).
+``render`` is the differentiable render, projection and SH colour in
+PyTorch autograd, then one of JAX's routes, by ``backend`` and
+``binning``:
 
-``render_fast`` is the inference-only viewer path: the same forward with
-no autograd. The returned ``FastBins`` (table and tile ranges) can be
-passed back while the scene and camera are static, so a repeat frame runs
-only the compositing kernel.
+- ``"pallas"`` / ``"pallas"``, the training path and the port's default
+  (JAX's is ``"tiles"``): one ``torch.autograd.Function``
+  (``RasterBinned``, the counterpart of
+  ``pallas_raster._make_raster_binned``) whose forward runs the expand
+  kernel, the sort, the feature gather and the forward kernel, and whose
+  backward runs the backward kernel and the per-gaussian reduce;
+- ``"pallas"`` / ``"xla"``: ``tiles.bin_gaussians`` (torch ops), then
+  the forward and backward kernels over its bins
+  (``raster.rasterize_pallas``);
+- ``"tiles"`` (and any other name, as in JAX): ``tiles.bin_gaussians``
+  with its id matrix, then ``tiles.composite_tiles``, torch ops with the
+  hand-written backward;
+- ``"dense"``: ``dense.composite_dense``, O(N * pixels), under autograd;
+- ``"surfel_pallas"``: exact-2DGS surfels through the surfel kernels
+  (``surfel_raster.render_surfels``); ``"surfel"``: through the XLA
+  compositor's counterpart (``surfel.render_surfels``).
+
+On a card the kernel routes launch their kernels; the other routes are
+PyTorch ops on the card, as they are XLA code in JAX.
+
+``render_fast`` is the inference-only viewer path: the forward kernel
+with no autograd, after the expand kernel's binning (``binning="pallas"``)
+or ``tiles.bin_gaussians`` (``"xla"``). The returned ``FastBins`` (table
+and tile ranges) can be passed back while the scene and camera are
+static, so a repeat frame runs only the compositing kernel.
 """
 
 from __future__ import annotations
@@ -23,8 +39,14 @@ from typing import NamedTuple
 import torch
 
 from divshot_tpu_torch.raster import raster as _raster
+from divshot_tpu_torch.raster import tiles as _tiles
 from divshot_tpu_torch.raster.bin import expand_sorted, reduce_grads_sorted
+from divshot_tpu_torch.raster.dense import composite_dense
 from divshot_tpu_torch.raster.project import Projection, project_gaussians
+from divshot_tpu_torch.raster.raster import (rasterize_pallas, split_tiles,
+                                             tile_cotangent)
+from divshot_tpu_torch.raster.surfel import \
+    render_surfels as render_surfels_xla
 from divshot_tpu_torch.raster.surfel_raster import render_surfels
 from divshot_tpu_torch.splat.camera import Camera
 from divshot_tpu_torch.splat.gaussians import GaussianParams
@@ -77,8 +99,8 @@ class RasterBinned(torch.autograd.Function):
         out = _raster.rasterize_forward(
             bins.table, bins.tile_start, width=cfg.width, height=cfg.height,
             tile_size=cfg.tile_size, nch=nch, t_eps=cfg.t_eps)
-        img, t_px = _split_tiles(out, background, cfg.width, cfg.height,
-                                 cfg.tile_size, nch)
+        img, t_px = split_tiles(out, background, cfg.width, cfg.height,
+                                cfg.tile_size, nch)
         ctx.cfg, ctx.bins, ctx.nch = cfg, bins, nch
         ctx.save_for_backward(out, background, t_px)
         n_inst = bins.num_instances
@@ -92,18 +114,8 @@ class RasterBinned(torch.autograd.Function):
         cfg, bins, nch = ctx.cfg, ctx.bins, ctx.nch
         if g_img is None:
             g_img = out.new_zeros((cfg.height, cfg.width, nch))
-        if g_alpha is None:
-            g_alpha = out.new_zeros((cfg.height, cfg.width))
-        # dL/dT enters through the background composite (+g_rgb . bg) and
-        # alpha = 1 - T (-g_alpha); the kernel takes the folded sign
-        g_t = g_alpha - torch.einsum("hwc,c->hw", g_img[..., :3], background)
-        cot_img = torch.cat([g_img, g_img.new_zeros((*g_img.shape[:2],
-                                                      7 - nch)),
-                             g_t[..., None]], -1)
-        tiles_x, tiles_y = _raster._grid(cfg.width, cfg.height,
-                                         cfg.tile_size)
-        cot = _raster._image_to_tiles(cot_img, tiles_x, tiles_y,
-                                      cfg.tile_size).contiguous()
+        cot = tile_cotangent(g_img, g_alpha, background, cfg.width,
+                             cfg.height, cfg.tile_size, nch)
         grads = _raster.rasterize_backward(
             bins.table, bins.tile_start, cot, out, width=cfg.width,
             height=cfg.height, tile_size=cfg.tile_size, nch=nch,
@@ -112,20 +124,6 @@ class RasterBinned(torch.autograd.Function):
         d_bg = torch.einsum("hwc,hw->c", g_img[..., :3], t_px)
         return (g["means2d"], g["conics"], g["colors"], g["opacity"], d_bg,
                 g["absgrad"], g["npix"], None, None, None, None, None)
-
-
-def _split_tiles(out: torch.Tensor, background: torch.Tensor, width: int,
-                 height: int, tile_size: int, nch: int):
-    """(T, 8, px) forward rows -> (image (H, W, nch) with the background on
-    its first three channels, transmittance (H, W))."""
-    tiles_x, tiles_y = _raster._grid(width, height, tile_size)
-    img = _raster._tiles_to_image(out[:, 0:nch], tiles_x, tiles_y,
-                                  tile_size, width, height)
-    t_px = _raster._tiles_to_image(out[:, 7:8], tiles_x, tiles_y,
-                                   tile_size, width, height)[..., 0]
-    bg = background if nch == 3 else torch.cat(
-        [background, background.new_zeros((nch - 3,))])
-    return img + t_px[..., None] * bg[None, None, :], t_px
 
 
 def rasterize_binned(means2d, conics, colors, opacities, proj: Projection,
@@ -184,23 +182,32 @@ def render(
     cull_sh_radius: float = 0.0,
     with_absgrad: bool = True,
 ) -> RenderOutput:
-    """Differentiable render through the hand-written kernels. ``backend``
-    and ``binning`` keep the JAX package's names; the port has the kernel
-    routes only: ``"pallas"`` / ``"pallas"`` (3DGS, the port's default
-    where JAX's is XLA's ``"tiles"``) and ``"surfel_pallas"`` (exact 2DGS,
-    without the geometry planes, as in JAX). ``tile_capacity`` and
-    ``chunk`` belong to JAX's XLA routes; the kernel route ignores them,
-    as JAX's Pallas route does, so callers' keyword arguments pass
-    through.
+    """Differentiable render on the route ``backend`` / ``binning`` names
+    (the module docstring lists them). ``tile_capacity`` (the id
+    matrix's columns: the instances past it in a tile are dropped, as in
+    JAX) and ``chunk`` belong to the ``"tiles"`` and ``"surfel"`` routes;
+    the kernel routes ignore them, as JAX's Pallas routes do.
 
     ``absgrad_sink`` / ``means2d_sink`` are zero (N, 2) inputs whose
     gradients harvest the AbsGS absolute and the signed screen-space
     gradients per gaussian, ``npix_sink`` (N,) the pixels each splat was
-    applied to. ``override_colors`` (N, 3) replaces the SH colour, so that
-    any per-splat quantity (a depth, a normal) is composited with the same
-    weights; its gradient flows back to it as to the SH colour.
-    ``extra_colors`` (N, E <= 4) adds planes composited in the same pass,
-    returned as ``extra``."""
+    applied to (the kernel routes). ``override_colors`` (N, 3) replaces
+    the SH colour, so that any per-splat quantity (a depth, a normal) is
+    composited with the same weights; its gradient flows back to it as to
+    the SH colour. ``extra_colors`` (N, E <= 4) adds planes composited in
+    the same pass, returned as ``extra`` (the ``"pallas"`` backend
+    only)."""
+    if backend == "surfel":
+        out, _npix = render_surfels_xla(
+            params, camera, sh_degree=sh_degree, background=background,
+            tile_size=tile_size, tile_capacity=tile_capacity,
+            instance_capacity=instance_capacity,
+            instance_capacity_mult=instance_capacity_mult,
+            max_tiles_per_gaussian=max_tiles_per_gaussian, chunk=chunk,
+            t_eps=t_eps, absgrad_sink=absgrad_sink,
+            means2d_sink=means2d_sink, npix_sink=npix_sink,
+            override_colors=override_colors, with_geometry=False)
+        return out
     if backend == "surfel_pallas":
         return render_surfels(
             params, camera, sh_degree=sh_degree, background=background,
@@ -210,13 +217,6 @@ def render(
             absgrad_sink=absgrad_sink, means2d_sink=means2d_sink,
             npix_sink=npix_sink, override_colors=override_colors,
             with_geometry=False)
-    del tile_capacity, chunk
-    if backend != "pallas" or binning != "pallas":
-        raise NotImplementedError(
-            f"render(backend={backend!r}, binning={binning!r}): the port "
-            f"has only the kernel routes (pallas/pallas, surfel_pallas); "
-            f"the other backends (tiles, dense, the XLA surfel "
-            f"compositor) are still to port (ROADMAP.md, Queue A item 8)")
     if sh_degree is None:
         sh_degree = params.sh_degree
     dev = params.device
@@ -237,6 +237,20 @@ def render(
             shN = shN * (proj.radii > cull_sh_radius)[:, None, None]
         colors = eval_sh_color(params.sh0, shN, dirs, sh_degree)
     opac = opac_raw * proj.comp
+    if background is None:
+        background = torch.zeros((3,), device=dev)
+    if extra_colors is not None and backend != "pallas":
+        raise ValueError("extra_colors requires the pallas backend")
+
+    if backend == "dense":
+        # the opacities carry the compensation already
+        img, alpha = composite_dense(
+            proj._replace(comp=torch.ones_like(proj.comp)), colors, opac,
+            camera.width, camera.height, background=background)
+        sink = torch.zeros((params.capacity, 2), device=dev) \
+            if absgrad_sink is None else absgrad_sink
+        return RenderOutput(img, alpha, proj, proj.means2d, sink)
+
     if instance_capacity is None:
         instance_capacity = max(1 << 16,
                                 int(instance_capacity_mult * params.capacity))
@@ -246,18 +260,46 @@ def render(
         else proj.means2d + means2d_sink
     cols = colors if extra_colors is None \
         else torch.cat([colors, extra_colors], 1)
-    img, alpha, n_inst, max_tc = rasterize_binned(
-        means2d, proj.conics, cols, opac, proj, width=camera.width,
-        height=camera.height, tile_size=tile_size,
+
+    if backend == "pallas" and binning == "pallas":
+        img, alpha, n_inst, max_tc = rasterize_binned(
+            means2d, proj.conics, cols, opac, proj, width=camera.width,
+            height=camera.height, tile_size=tile_size,
+            instance_capacity=instance_capacity,
+            max_tiles_per_gaussian=max_tiles_per_gaussian,
+            background=background, absgrad_sink=absgrad_sink,
+            npix_sink=npix_sink, t_eps=t_eps, with_absgrad=with_absgrad)
+        extra = None
+        if extra_colors is not None:
+            img, extra = img[..., :3], img[..., 3:]
+        return RenderOutput(img, alpha, proj, proj.means2d, absgrad_sink,
+                            extra, n_inst, max_tc)
+
+    bins = _tiles.bin_gaussians(
+        proj.means2d, proj.depths, proj.radii, camera.width, camera.height,
+        tile_size=tile_size, tile_capacity=tile_capacity,
         instance_capacity=instance_capacity,
         max_tiles_per_gaussian=max_tiles_per_gaussian,
-        background=background, absgrad_sink=absgrad_sink,
-        npix_sink=npix_sink, t_eps=t_eps, with_absgrad=with_absgrad)
-    extra = None
-    if extra_colors is not None:
-        img, extra = img[..., :3], img[..., 3:]
-    return RenderOutput(img, alpha, proj, proj.means2d, absgrad_sink, extra,
-                        n_inst, max_tc)
+        build_ids_mat=backend != "pallas", radii_xy=proj.radii_xy,
+        rad2=proj.rad2)
+    max_tc = bins.tile_counts.max()
+    if backend == "pallas":
+        img, alpha = rasterize_pallas(
+            means2d, proj.conics, cols, opac, bins, width=camera.width,
+            height=camera.height, tile_size=tile_size, background=background,
+            absgrad_sink=absgrad_sink, npix_sink=npix_sink, t_eps=t_eps,
+            with_absgrad=with_absgrad)
+        extra = None
+        if extra_colors is not None:
+            img, extra = img[..., :3], img[..., 3:]
+        return RenderOutput(img, alpha, proj, proj.means2d, absgrad_sink,
+                            extra, bins.num_instances, max_tc)
+    img, alpha = _tiles.composite_tiles(
+        means2d, proj.conics, colors, opac, bins.ids_mat, camera.width,
+        camera.height, tile_size=tile_size, chunk=chunk,
+        background=background, absgrad_sink=absgrad_sink, t_eps=t_eps)
+    return RenderOutput(img, alpha, proj, proj.means2d, absgrad_sink, None,
+                        bins.num_instances, max_tc)
 
 
 class FastBins(NamedTuple):
@@ -301,11 +343,14 @@ def render_fast(
     antialiased: bool = False,
     bins: FastBins | None = None,
     t_eps: float = 1e-4,
+    binning: str = "pallas",
     params_token: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, FastBins]:
     """-> (image (H, W, 3), alpha (H, W), FastBins), on the params' device.
     ``instance_capacity`` bounds the per-tile instances; the demand before
-    the cap is ``FastBins.num_instances``."""
+    the cap is ``FastBins.num_instances``. ``binning``: ``"pallas"``, the
+    expand kernel and its sort, or ``"xla"``, ``tiles.bin_gaussians``
+    without the id matrix and the feature gather."""
     if bins is not None and bins.token != params_token:
         raise ValueError(
             f"stale FastBins: bins were built under params_token="
@@ -319,18 +364,29 @@ def render_fast(
         proj, colors, opac = frame_inputs(
             params, camera, sh_degree=sh_degree, eps2d=eps2d,
             antialiased=antialiased)
-        sb = expand_sorted(
-            proj.means2d, proj.conics, proj.depths, proj.radii,
-            proj.radii_xy, proj.rad2, colors, opac, width=camera.width,
-            height=camera.height, tile_size=tile_size,
-            instance_capacity=instance_capacity,
-            mt=min(max_tiles_per_gaussian, 256))
-        bins = FastBins(table=sb.table, tile_start=sb.tile_start,
+        if binning == "pallas":
+            sb = expand_sorted(
+                proj.means2d, proj.conics, proj.depths, proj.radii,
+                proj.radii_xy, proj.rad2, colors, opac, width=camera.width,
+                height=camera.height, tile_size=tile_size,
+                instance_capacity=instance_capacity,
+                mt=min(max_tiles_per_gaussian, 256))
+            table = sb.table
+        else:
+            sb = _tiles.bin_gaussians(
+                proj.means2d, proj.depths, proj.radii, camera.width,
+                camera.height, tile_size=tile_size,
+                instance_capacity=instance_capacity,
+                max_tiles_per_gaussian=max_tiles_per_gaussian,
+                build_ids_mat=False, radii_xy=proj.radii_xy, rad2=proj.rad2)
+            table = _raster.build_feature_table(
+                proj.means2d, proj.conics, colors, opac, sb.inst_gauss)
+        bins = FastBins(table=table, tile_start=sb.tile_start,
                         num_instances=sb.num_instances, token=params_token)
 
     out = _raster.rasterize_forward(
         bins.table, bins.tile_start, width=camera.width,
         height=camera.height, tile_size=tile_size, nch=3, t_eps=t_eps)
-    img, t_px = _split_tiles(out, background, camera.width, camera.height,
-                             tile_size, 3)
+    img, t_px = split_tiles(out, background, camera.width, camera.height,
+                            tile_size, 3)
     return img, 1.0 - t_px, bins

@@ -13,12 +13,17 @@ logs them.
 
 Routes, as in JAX: 3DGS (``model_type=0``) renders through the 3DGS
 kernels (``render``); exact 2DGS (``model_type=1``, ``surfel_exact``, the
-default) through the surfel kernels (``render_surfels``); flattened 2DGS
-(``surfel_exact=False``) flattens the splats and renders them through the
-3DGS kernels. A ``render_kwargs["backend"]`` overrides the route. With
+default) through the surfel kernels (``surfel_raster.render_surfels``);
+flattened 2DGS (``surfel_exact=False``) flattens the splats and renders
+them through the 3DGS kernels. A ``render_kwargs["backend"]`` overrides
+the route, as JAX's does: ``"tiles"``, ``"dense"`` or ``"pallas"`` with
+``binning="xla"`` for 3DGS and flattened 2DGS, ``"surfel"`` (the XLA
+compositor's counterpart, ``surfel.render_surfels``) for exact 2DGS. With
 the normal-consistency or the depth-distortion loss, or on 2DGS, the step
-composites the planes ``[z, z^2, nx, ny]`` in the same pass (the surfel
-kernels' own depth planes, or the 3DGS kernels' extra channels).
+composites the planes ``[z, z^2, nx, ny]``: in the same pass on the
+``"pallas"`` and surfel routes (the surfel compositors' own depth planes,
+or the 3DGS kernels' extra channels), in two more renders of
+``override_colors`` on ``"tiles"`` and ``"dense"``.
 
 The JAX trainer's options: the envmap background (``enable_bg``,
 ``models/background.py``, with its own Adam), masks (``use_mask``: image
@@ -35,9 +40,8 @@ the parameters after Adam and after refine), raising
 ``FloatingPointError`` naming the stage; off, they add nothing.
 
 Still raising ``NotImplementedError`` naming ROADMAP.md: gradient
-all-reduce across chips (``grad_psum_axis``) and the XLA surfel
-compositor (``backend="surfel"``). The dynamic models have their own step
-(``models/dynamic.py``).
+all-reduce across chips (``grad_psum_axis``). The dynamic models have
+their own step (``models/dynamic.py``).
 """
 
 from __future__ import annotations
@@ -57,6 +61,8 @@ from divshot_tpu_torch.gsio.loader import HostImageStore, Prefetcher
 from divshot_tpu_torch.models.background import (init_envmap,
                                                  render_background)
 from divshot_tpu_torch.raster.render import frame_inputs, render
+from divshot_tpu_torch.raster.surfel import \
+    render_surfels as render_surfels_xla
 from divshot_tpu_torch.raster.surfel_raster import (render_surfels,
                                                     surfel_inputs)
 from divshot_tpu_torch.splat.camera import Camera, batch_cameras
@@ -324,15 +330,18 @@ def make_train_step(cfg: TrainConfig, dataset: Dataset,
     backend = rk["backend"]
     surfel = (cfg.model_type == ModelType.GS2D
               and backend not in ("tiles", "dense", "pallas"))
-    if surfel and backend != "surfel_pallas":
-        raise _unported(f"render backend {backend!r} (the XLA surfel "
-                        f"compositor)")
+    # the XLA surfel compositor's counterpart; its pixel counts come out
+    # of the forward, not out of a kernel's backward
+    surfel_xla = surfel and backend != "surfel_pallas"
     srk = {k: v for k, v in rk.items()
            if k in ("tile_size", "instance_capacity", "instance_capacity_mult",
-                    "max_tiles_per_gaussian", "t_eps")}
+                    "max_tiles_per_gaussian", "t_eps")
+           + (("tile_capacity", "chunk") if surfel_xla else ())}
     need_geom = (cfg.normal_consistency_loss
                  or cfg.model_type == ModelType.GS2D
                  or cfg.dist_loss_weight > 0)
+    # the planes in the render's own pass; else two more renders
+    single_pass = need_geom and (backend == "pallas" or surfel)
     debug = cfg.debug_nan
     extent = dataset.scene_extent
     dcfg = cfg.densify
@@ -375,33 +384,51 @@ def make_train_step(cfg: TrainConfig, dataset: Dataset,
             check_finite("SH colour", colors)
 
     def render_view(p: GaussianParams, camera: Camera, sinks):
-        """-> the view's RenderOutput; its ``extra`` holds the planes
-        [z, z^2, nx, ny] when the geometry losses need them."""
+        """-> (the view's RenderOutput, the planes [z, z^2, nx, ny] and
+        their alpha when the geometry losses need them, the XLA surfel
+        route's forward pixel counts or None)."""
         sink_kw = dict(absgrad_sink=sinks[0], means2d_sink=sinks[1],
                        npix_sink=sinks[2])
         if surfel:
             if debug:
                 check_inputs(p, camera)
-            return render_surfels(p, camera, background=bg,
-                                  with_geometry=need_geom, **sink_kw, **srk)
+            if surfel_xla:
+                out, npix = render_surfels_xla(
+                    p, camera, background=bg, with_geometry=need_geom,
+                    **sink_kw, **srk)
+            else:
+                out, npix = render_surfels(
+                    p, camera, background=bg, with_geometry=need_geom,
+                    **sink_kw, **srk), None
+            return out, (out.extra, out.alpha), npix
         if cfg.model_type == ModelType.GS2D:
             p = G.flatten_to_surfels(p)
         if debug:
             check_inputs(p, camera)
-        aux = None
-        if need_geom:
-            # camera-space depth and normals; camera-facing, so nz < 0 is
-            # recoverable from (nx, ny); z and z^2 feed the distortion
-            z = matvec3(camera.rotation, p.means, camera.translation)[:, 2]
-            n_cam = matvec3(camera.rotation, G.splat_normals(p, camera),
-                            (0.0, 0.0, 0.0))
-            aux = torch.stack([z, z * z, n_cam[:, 0], n_cam[:, 1]], 1)
-        return render(p, camera, background=bg, extra_colors=aux,
-                      **sink_kw, **rk)
+        if not need_geom:
+            return render(p, camera, background=bg, **sink_kw, **rk), \
+                None, None
+        # camera-space depth and normals; camera-facing, so nz < 0 is
+        # recoverable from (nx, ny); z and z^2 feed the distortion
+        z = matvec3(camera.rotation, p.means, camera.translation)[:, 2]
+        n_cam = matvec3(camera.rotation, G.splat_normals(p, camera),
+                        (0.0, 0.0, 0.0))
+        aux = torch.stack([z, z * z, n_cam[:, 0], n_cam[:, 1]], 1)
+        if single_pass:
+            out = render(p, camera, background=bg, extra_colors=aux,
+                         **sink_kw, **rk)
+            return out, (out.extra, out.alpha), None
+        out = render(p, camera, background=bg, **sink_kw, **rk)
+        # [z, z^2, nx] and [z^2, ny, ny], spliced as JAX splices them
+        out2 = render(p, camera, override_colors=aux[:, :3], **rk)
+        out3 = render(p, camera, override_colors=aux[:, [1, 3, 3]], **rk)
+        planes = torch.cat([out2.image[..., 0:1], out3.image[..., 0:1],
+                            out2.image[..., 2:3], out3.image[..., 1:2]], -1)
+        return out, (planes, out2.alpha), None
 
     def view_loss(p, env, camera, gt, mask, sinks, step, hyp):
         """One view's render and loss -> (loss, RenderOutput)."""
-        out = render_view(p, camera, sinks)
+        out, geom, npix = render_view(p, camera, sinks)
         if debug:
             check_finite("render (image and alpha)", out.image, out.alpha)
         img = out.image
@@ -413,10 +440,12 @@ def make_train_step(cfg: TrainConfig, dataset: Dataset,
             gt = gt * mask[..., None]
         loss = photometric_loss(img, gt, hyp["ssim_weight"],
                                 use_ssim=cfg.ssim_weight > 0)
+        if npix is not None:
+            # zero-valued: npix_sink's gradient is the forward's counts
+            loss = loss + (sinks[2] * npix).sum()
         if need_geom:
             # the geometry terms stay unmasked, as in JAX
-            loss = loss + geometry_loss(cfg, out.extra, out.alpha, camera,
-                                        step, hyp)
+            loss = loss + geometry_loss(cfg, *geom, camera, step, hyp)
         return loss, out
 
     def train_step(state: TrainState, view_idx, gt_stream=None,
@@ -480,9 +509,10 @@ def make_train_step(cfg: TrainConfig, dataset: Dataset,
         g_fields = dict(zip(PARAM_FIELDS, grads[:len(PARAM_FIELDS)]))
         g_env = grads[len(PARAM_FIELDS)] if env is not None else None
         g_abs, g_m2d, g_npix = grads[-3:]
-        if len(views) > 1:
+        if len(views) > 1 and not surfel_xla:
             # the kernels' pixel counts do not scale with the loss: their
-            # sum over the views, made the mean as for the other sinks
+            # sum over the views, made the mean as for the other sinks (the
+            # XLA surfel route's term is in the loss, so a mean already)
             g_npix = g_npix / len(views)
         if debug:
             for name, g in zip((*PARAM_FIELDS, "the envmap"), grads):
@@ -536,14 +566,17 @@ def make_train_step(cfg: TrainConfig, dataset: Dataset,
             if debug:
                 check_finite("refine", *(getattr(params, f)
                                          for f in PARAM_FIELDS))
+            zero = torch.zeros((), dtype=torch.int32, device=dev)
+            n_inst = [zero if o.num_instances is None else o.num_instances
+                      for o in outs]
+            max_tc = [zero if o.max_tile_count is None else o.max_tile_count
+                      for o in outs]
             metrics = {
                 "loss": loss.detach(),
                 "psnr": psnr(outs[0].image.detach(), gts[0]),
                 "num_alive": params.alive.sum(),
-                "num_instances": outs[0].num_instances if not batched
-                else torch.stack([o.num_instances for o in outs]).amax(),
-                "max_tile_count": outs[0].max_tile_count if not batched
-                else torch.stack([o.max_tile_count for o in outs]).amax(),
+                "num_instances": torch.stack(n_inst).amax(),
+                "max_tile_count": torch.stack(max_tc).amax(),
             }
         return TrainState(params=params, opt=opt, dstate=dstate,
                           gen=state.gen, bg=new_bg), metrics
@@ -612,7 +645,11 @@ class Trainer:
                       self.cfg.raster.instance_capacity_mult)
         self._instance_capacity = rk.get("instance_capacity") \
             or max(1 << 16, int(mult * cap))
+        # per-tile truncation exists only in the id matrix ("tiles")
+        self._tile_capacity = rk.get("tile_capacity", 1024) \
+            if rk.get("backend") == "tiles" else None
         self._warned_instance_overflow = False
+        self._warned_tile_overflow = False
         rk = {**rk, "instance_capacity": self._instance_capacity}
         self._steps = {s: make_train_step(self.cfg, self.dataset, rk,
                                           res_scale=s,
@@ -724,7 +761,8 @@ class Trainer:
         instance buffer from measured demand when it nears the capacity
         (demand x 1.3, rounded up to a power of two, at least doubled);
         else warn once when demand reaches the guard band, where binning
-        drops instances."""
+        drops instances. On the ``"tiles"`` route, also warn once when the
+        densest tile holds more instances than ``tile_capacity``."""
         ni = int(metrics.get("num_instances", 0))
         icap = self._instance_capacity
         if self.cfg.raster.auto_instance_capacity and ni > 0.9 * icap:
@@ -742,4 +780,13 @@ class Trainer:
                 f"tile-instance demand {ni} reaches the instance_capacity "
                 f"{icap} guard band; excess instances are DROPPED. Raise "
                 f"raster.instance_capacity_mult.", RuntimeWarning,
+                stacklevel=2)
+        mtc = int(metrics.get("max_tile_count", 0))
+        if self._tile_capacity is not None and mtc > self._tile_capacity \
+                and not self._warned_tile_overflow:
+            self._warned_tile_overflow = True
+            warnings.warn(
+                f"densest tile holds {mtc} instances > tile_capacity "
+                f"{self._tile_capacity}; the tile's farthest splats are "
+                f"DROPPED. Raise tile_capacity.", RuntimeWarning,
                 stacklevel=2)

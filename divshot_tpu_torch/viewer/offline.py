@@ -1,8 +1,9 @@
 """Offscreen rendering (counterpart of ``divshot_tpu/viewer/offline.py``):
 batches of views to numbered PNGs (``gsio/png.write_png``) and keyframed
-fly-throughs to MJPEG video, through ``render`` on the kernel route (the
-expand and forward kernels on a card). JAX's default backend is XLA's
-``"tiles"``; the port's is ``"pallas"``, the only 3DGS route it has.
+fly-throughs to MJPEG video, through ``render`` on any of its routes
+(``backend``, passed through with the other render arguments). JAX's
+default backend is XLA's ``"tiles"``; the port's is the kernel route,
+``"pallas"`` (the expand and forward kernels on a card).
 """
 
 from __future__ import annotations

@@ -342,6 +342,30 @@ def test_dynamic_step_matches_jax(dyn_case):
     assert moved > 0
 
 
+def test_dynamic_step_on_the_tiles_route_matches_jax(dyn_case):
+    """The same carried-across step through the port's ``"tiles"`` route,
+    JAX's own: the loss, the gradients and the densification statistics
+    (the binning the same as JAX's, so its demand too)."""
+    c = dyn_case
+    state, j2, jm = c["state"], c["j2"], c["jm"]
+    carried = _carry_state(state, TD.DeformationMLP(width=64, depth=3))
+    _, tstep = TD.make_dynamic_train_step(_port_cfg(state.params.capacity),
+                                          c["tds"], carried.net,
+                                          render_kwargs=JRK)
+    t2, tm = tstep(carried, 5)
+    np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
+                               rtol=1e-5)
+    for f in PARAM_FIELDS:
+        g_t = _grad(t2.opt.mu[f].numpy(), carried.opt.mu[f].numpy())
+        g_j = _grad(j2.opt.mu[f], state.opt.mu[f])
+        np.testing.assert_array_less(np.abs(g_t - g_j),
+                                     3e-4 + 1e-7 * np.abs(g_j), err_msg=f)
+    np.testing.assert_array_equal(t2.dstate.count.numpy(),
+                                  _np(j2.dstate.count))
+    np.testing.assert_allclose(t2.dstate.grad_accum.numpy(),
+                               _np(j2.dstate.grad_accum), atol=3e-4)
+
+
 def test_evaluate_dynamic_matches_jax(dyn_case):
     c = dyn_case
     ref = JD.evaluate_dynamic(c["j2"], c["jnet"], c["jds"], render_kwargs=JRK)

@@ -3,8 +3,8 @@ blocked, every module of ``divshot_tpu_torch`` imports and
 ``chip_smoke.py``'s kernel (with the backward kernels' unit split),
 viewer-path, training-path, 2DGS training-path, dataset-path,
 trainer-options, live-session, dynamic-models-and-export and editor
-phases run on the CPU at a tiny scale,
-with a ``kernels`` record for every kernel. Also checks on the port's
+phases and the XLA routes' phase run on the CPU at a tiny scale, with a
+``kernels`` record for every kernel. Also checks on the port's
 files: no JAX, flax, PIL, imageio or ``divshot_tpu`` import outside
 docstrings, no file over 200 KB, and the kernel build directory ignored by
 git."""
@@ -45,6 +45,7 @@ with contextlib.redirect_stdout(buf):
     chip_smoke.drop_bricks()
     dyn = chip_smoke.phase_dynamic_export(dev, chip_smoke.TINY)
     ed = chip_smoke.phase_editor(dev, chip_smoke.TINY)
+    routes = chip_smoke.phase_routes(dev, chip_smoke.TINY)
 out = buf.getvalue()
 assert '"ok"' not in out, out
 assert all(v == 0.0 for v in checks.values()), checks
@@ -141,7 +142,23 @@ assert "(c) apps.render --video: launches" in out
 assert "(c) apps.render --fast --video: launches" in out
 assert "AVIs of 3 00dc frames, idx1 pointing at each, SOI / EOI" in out
 assert "(d) apps.edit with 8 ops and a merge" in out
-for r in records + train + train2d + data + opts + live + dyn + ed:
+assert [(r["scene"], r["name"]) for r in routes] == [
+    ("xla_train_500_64", "forward"), ("xla_train_500_64", "backward"),
+    ("xla_random_1500", "forward")]
+rt = routes[0]
+assert set(rt["routes"]) == {"kernel", "xla", "tiles", "dense"}
+assert rt["routes"]["xla"]["launches"] == (0, 0, 0)
+assert rt["routes"]["xla"]["image"] <= 3e-5
+assert set(rt["bars"]) == {"adc+", "mcmc", "mcmc_normal", "2dgs"}
+assert rt["bars"]["2dgs"]["route"] == "surfel"
+assert rt["surfel"]["grad"] <= 3e-3 and rt["surfel"]["npix"] <= 2
+assert rt["app"]["densest_tile"] > 0 and rt["app"]["s"] > 0
+assert routes[2]["frame_ms"] > 0 and "kernel_binned_frame_ms" in routes[2]
+assert "(a) CPU rehearsal: render forward + backward of sum_loss" in out
+assert "(c) CPU rehearsal: mcmc_normal through 'tiles'" in out
+assert "(e) CPU rehearsal: apps.render --backend tiles --orbit 2" in out
+assert "ns a splat-pixel pair" in out
+for r in records + train + train2d + data + opts + live + dyn + ed + routes:
     assert keys <= set(r), r
     assert r["route"] == "cuda" and r["library_ms"] is None
     assert r["max_abs_err"] == 0.0 and r["bound_ms"] > 0
@@ -183,7 +200,7 @@ def test_chip_smoke_fails_without_a_card():
 def _port_files():
     files = sorted(p for p in PORT.rglob("*") if p.is_file()
                    and "__pycache__" not in p.parts)
-    files += [REPO / "chip_smoke.py"]
+    files += [REPO / "chip_smoke.py", REPO / "chip_smoke_routes.py"]
     files += sorted((REPO / "tests").glob("test_torch_*.py"))
     return files
 

@@ -605,15 +605,21 @@ def test_render_app_fast_path(tmp_path):
 
 def test_render_app_unported_options(tmp_path):
     _write_ply(tmp_path / "m.ply", 10, np.random.default_rng(2))
-    # the non-fast path and --video are ported; XLA's backends are not
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
-        app.main(["--model", str(tmp_path / "m.ply"), "--backend", "tiles",
-                  "--out", str(tmp_path / "shots"), "--device", CPU])
+    # the non-fast path, --video and XLA's backends are ported: the
+    # "tiles" and "dense" views match the kernel route's
     assert app.main(["--model", str(tmp_path / "m.ply"), "--orbit", "1",
                      "--width", "16", "--height", "16", "--out",
                      str(tmp_path / "shots"), "--video",
                      str(tmp_path / "x.avi"), "--device", CPU]) == 0
     assert (tmp_path / "x.avi").read_bytes()[:4] == b"RIFF"
+    want = _read_png(str(tmp_path / "shots" / "00000.png")).astype(int)
+    for backend in ("tiles", "dense"):
+        out = tmp_path / backend
+        assert app.main(["--model", str(tmp_path / "m.ply"), "--orbit", "1",
+                         "--width", "16", "--height", "16", "--backend",
+                         backend, "--out", str(out), "--device", CPU]) == 0
+        got = _read_png(str(out / "00000.png")).astype(int)
+        assert np.abs(got - want).max() <= 1, backend
     # the other formats are ported now: a four-byte file fails as each
     # format's reader fails on it (JAX's alike), or holds no splat
     import gzip

@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 import divshot_tpu.scene as JS
@@ -360,12 +361,21 @@ def test_environment_rejects_non_png(tmp_path):
                        ).sample_background(8, 8)
 
 
-def test_other_backends_raise_naming_queue_a_item_8():
-    _, tp = _scene(n=20, capacity=20)
-    _, cam = _cams()
+def test_other_backends_match_jax():
+    """``render(backend="tiles" | "dense")`` (they raised before their
+    port) against JAX's same route, image and alpha atol 3e-5; the
+    tiles route's binning counters equal JAX's."""
+    jp, tp = _scene(n=20, capacity=20)
+    jc, cam = _cams()
     for backend in ("tiles", "dense"):
-        with pytest.raises(NotImplementedError, match="Queue A item 8"):
-            render(tp, cam, backend=backend)
+        want = jax.jit(lambda p: jax_render(p, jc, backend=backend,
+                                            **RK))(jp)
+        got = render(tp, cam, backend=backend, **RK)
+        _same(got.image, want.image)
+        _same(got.alpha, want.alpha)
+        assert float(got.alpha.max()) > 0.1
+        if backend == "tiles":
+            assert int(got.num_instances) == int(want.num_instances) > 0
 
 
 @pytest.mark.parametrize("channels", [None, 3, 4])

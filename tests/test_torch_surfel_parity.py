@@ -36,6 +36,7 @@ from divshot_tpu_torch.gsio.synthetic import orbit_cameras
 from divshot_tpu_torch.raster import bin as B
 from divshot_tpu_torch.raster import surfel_raster as SR
 from divshot_tpu_torch.raster.render import render
+from divshot_tpu_torch.raster import surfel as SF
 from divshot_tpu_torch.raster.surfel import project_surfels
 from divshot_tpu_torch.splat.camera import Camera
 from divshot_tpu_torch.splat.gaussians import GaussianParams
@@ -380,7 +381,9 @@ def test_normal_consistency_loss_matches_jax():
 
 def test_render_dispatches_the_surfel_backend():
     """``render(backend="surfel_pallas")`` is ``render_surfels`` without
-    the geometry planes, as in JAX; the XLA compositor is not ported."""
+    the geometry planes, as in JAX; ``render(backend="surfel")`` the XLA
+    compositor's counterpart (``surfel.render_surfels``) without them,
+    within the forward bar of the kernel route and of JAX's XLA route."""
     jp, jc = make_surfel_scene(n=60, size=64)
     tp, cam = _params(jp), _camera(jc)
     out = render(tp, cam, backend="surfel_pallas")
@@ -388,5 +391,15 @@ def test_render_dispatches_the_surfel_backend():
     assert out.extra is None
     assert torch.equal(out.image, ref.image)
     assert torch.equal(out.alpha, ref.alpha)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        render(tp, cam, backend="surfel")
+    xla = render(tp, cam, backend="surfel")
+    xla_ref, npix = SF.render_surfels(tp, cam, with_geometry=False)
+    assert xla.extra is None and torch.equal(xla.image, xla_ref.image)
+    want, want_npix = jax.jit(lambda p: jax_render_surfels(
+        p, jc, with_geometry=False))(jp)
+    for got in (xla, out):
+        np.testing.assert_allclose(got.image.numpy(), _np(want.image),
+                                   atol=5e-5)
+        np.testing.assert_allclose(got.alpha.numpy(), _np(want.alpha),
+                                   atol=5e-5)
+    np.testing.assert_array_equal(npix.numpy(), _np(want_npix))
+    assert int(xla.num_instances) == int(want.num_instances)

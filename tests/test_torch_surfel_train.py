@@ -1,9 +1,11 @@
 """The 2DGS training step of the port against the JAX package's on the
 CPU, with the state carried across as in ``test_torch_train_parity``: the
-exact route (surfel kernels, plain versions) against JAX's float32 XLA
-surfel compositor, and the flattened route and 3DGS with the geometry
-losses against JAX's XLA tile rasterizer; then the 2DGS loss bar of
-``tests/test_train.py:103-113`` met by the port's trainer.
+exact route against JAX's float32 XLA surfel compositor, and the
+flattened route and 3DGS with the geometry losses against JAX's XLA tile
+rasterizer, each through the port's kernel routes (their plain versions)
+and through its counterparts of JAX's own routes (``"surfel"`` and
+``"tiles"``); then the 2DGS loss bar of ``tests/test_train.py:103-113``
+met by the port's trainer.
 
 Tolerances: the loss rtol 1e-5, the gradients (read from the Adam moment)
 atol 3e-4, the densification counts exactly and their gradient sums atol
@@ -14,6 +16,7 @@ a typical one: its views hold grazing ray-surfel pairs (``_grazing``,
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -171,18 +174,11 @@ def _configure(cfg, case):
     return cfg
 
 
-@pytest.mark.parametrize("case", list(CASES))
-def test_2dgs_train_step_matches_jax(case):
-    """Two JAX steps, the state carried across, then one step in each
-    package on the same view: the loss, the gradients, the densification
-    statistics and the step count. The flattened and 3DGS cases do not
-    compare the densification gradient sums: JAX's XLA tile route
-    composites the geometry planes in two further renders that do not
-    carry the means2d sink, so its statistic leaves out the geometry
-    losses' screen gradient, which the port's single compositing pass
-    (as JAX's kernel route) includes. With the distortion loss on, each
-    gradient may differ by what the pixels at its tie can move it
-    (``_tie_bound``), on top of the 3e-4."""
+@functools.lru_cache(maxsize=None)
+def _jax_steps(case):
+    """Two JAX steps on its CPU route, the state carried across, then a
+    third on view 1 -> (cameras, images, its render arguments, the state
+    before the third step, after it, its metrics)."""
     cams, images, jp = _step_scene()
     jcfg = _configure(JTrainConfig(), case)
     jds = jax_trainer.Dataset.from_views(cams, images)
@@ -197,6 +193,32 @@ def test_2dgs_train_step_matches_jax(case):
         for v in (0, 2):
             state, _ = step(state, jnp.int32(v))
         j2, jm = step(state, jnp.int32(1))
+    return cams, images, rk, state, j2, jm
+
+
+# every case on the kernel route, and on JAX's own routes all but the
+# distortion from step 0, whose tie bound takes a gradient a tie pixel
+# (a minute through the checkpointed XLA surfel compositor)
+STEP_CASES = [(c, "kernel") for c in CASES] + [
+    (c, "xla") for c in CASES if c != "exact_distortion"]
+
+
+@pytest.mark.parametrize("case,route", STEP_CASES)
+def test_2dgs_train_step_matches_jax(case, route):
+    """Two JAX steps, the state carried across, then one step in each
+    package on the same view: the loss, the gradients, the densification
+    statistics and the step count; the port on its kernel route and on
+    JAX's own (``"surfel"`` or ``"tiles"``). On the kernel route the
+    flattened and 3DGS cases do not compare the densification gradient
+    sums: JAX's XLA tile route composites the geometry planes in two
+    further renders that do not carry the means2d sink, so its statistic
+    leaves out the geometry losses' screen gradient, which the port's
+    single compositing pass (as JAX's kernel route) includes; the port's
+    ``"tiles"`` route renders as JAX's, so there they are compared. With
+    the distortion loss on, each gradient may differ by what the pixels
+    at its tie can move it (``_tie_bound``), on top of the 3e-4."""
+    cams, images, rk, state, j2, jm = _jax_steps(case)
+    xla = route == "xla"
 
     carried = TrainState.from_numpy({
         "params": {f: _np(getattr(state.params, f)) for f in FIELDS},
@@ -207,8 +229,8 @@ def test_2dgs_train_step_matches_jax(case):
             "grad_accum", "count", "max_radii")}}, device=CPU)
     tcfg = _configure(TrainConfig(), case)
     tds = Dataset.from_views([_camera(c) for c in cams], images)
-    t2, tm = make_train_step(tcfg, tds, {"instance_capacity": 1 << 14})(
-        carried, 1)
+    t2, tm = make_train_step(tcfg, tds, rk if xla else {
+        "instance_capacity": 1 << 14})(carried, 1)
     np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
                                rtol=1e-5)
     assert int(tm["num_instances"]) > 0
@@ -233,7 +255,7 @@ def test_2dgs_train_step_matches_jax(case):
                                      err_msg=f)
     np.testing.assert_array_equal(t2.dstate.count.numpy(),
                                   _np(j2.dstate.count))
-    if case.startswith("exact"):
+    if case.startswith("exact") or xla:
         # the norm of the screen gradient moves by at most the norm of what
         # the tie pixels can move it by
         err = np.abs(t2.dstate.grad_accum.numpy().astype(np.float64)

@@ -24,6 +24,7 @@ Tolerances, each with its reason:
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -104,43 +105,70 @@ def _rel(a, b):
 # render and the backward
 
 
-def test_render_matches_jax():
-    """tests/test_round5.py:78-106's scene and loss through the port's
-    render against JAX's render on the kernel route (interpret mode) and
-    on the float32 XLA route."""
-    rng = np.random.default_rng(0)
-    jp = jax_random_scene(rng, 120, sh_degree=1)
-    jc = jax_orbit(1, width=64, height_px=48)[0]
-    fields = ("means", "scales", "quats", "sh0", "opacity")
+# the render options the trainer passes (radiusClip, cullSH, the mip
+# filter), each a case of test_render_matches_jax
+RENDER_OPTIONS = {
+    "defaults": {},
+    "radius_clip": dict(radius_clip=2.5),
+    "cull_sh": dict(cull_sh_radius=3.0),
+    "all_antialiased": dict(radius_clip=2.5, cull_sh_radius=3.0,
+                            antialiased=True),
+}
 
-    def jax_run(**kw):
+
+@pytest.mark.parametrize("case", list(RENDER_OPTIONS))
+def test_render_matches_jax(case):
+    """tests/test_round5.py:78-106's scene and loss through the port's
+    render, on the kernel route and on the ``"tiles"`` route, against
+    JAX's float32 XLA ``"tiles"`` route; with the defaults also against
+    JAX's kernel route (interpret mode), once."""
+    rng = np.random.default_rng(0)
+    jp = jax_random_scene(rng, 120, sh_degree=2 if case != "defaults"
+                          else 1)
+    jc = jax_orbit(1, width=64, height_px=48)[0]
+    fields = ("means", "scales", "quats", "sh0", "opacity") + (
+        ("shN",) if case != "defaults" else ())
+    opts = RENDER_OPTIONS[case]
+
+    def jax_run(jit=False, **kw):
         def f(fl):
             out = jax_render(jp.replace(**fl), jc, instance_capacity=1 << 13,
-                             **kw)
+                             **opts, **kw)
             return jnp.sum(out.image * out.image) + jnp.sum(out.alpha), \
                 out.image
-        (loss, img), g = jax.value_and_grad(f, has_aux=True)(
+        vg = jax.value_and_grad(f, has_aux=True)
+        (loss, img), g = (jax.jit(vg) if jit else vg)(
             {k: getattr(jp, k) for k in fields})
         return float(loss), _np(img), {k: _np(v) for k, v in g.items()}
 
-    loss_p, img_p, g_p = jax_run(backend="pallas", binning="pallas")
+    if case == "defaults":
+        loss_p, img_p, g_p = jax_run(backend="pallas", binning="pallas")
     with jax.default_matmul_precision("highest"):
-        loss_x, img_x, g_x = jax_run(backend="tiles", tile_capacity=512)
+        loss_x, img_x, g_x = jax_run(jit=True, backend="tiles",
+                                     tile_capacity=512)
 
     tp = _params(jp)
-    leaves = {k: getattr(tp, k).clone().requires_grad_() for k in fields}
-    out = render(dataclasses.replace(tp, **leaves), _camera(jc),
-                 instance_capacity=1 << 13)
-    loss = (out.image * out.image).sum() + out.alpha.sum()
-    loss.backward()
-    np.testing.assert_allclose(out.image.detach().numpy(), img_p, atol=3e-5)
-    np.testing.assert_allclose(float(loss), loss_p, rtol=1e-5)
-    assert out.image.shape == (48, 64, 3)
-    assert int(out.num_instances) > 0 and int(out.max_tile_count) > 0
-    for k in fields:
-        got = leaves[k].grad.numpy()
-        np.testing.assert_allclose(got, g_x[k], atol=3e-4, err_msg=k)
-        assert _rel(got, g_p[k]) < 3e-3, k
+    for route in ({}, {"backend": "tiles", "tile_capacity": 512}):
+        leaves = {k: getattr(tp, k).clone().requires_grad_() for k in fields}
+        out = render(dataclasses.replace(tp, **leaves), _camera(jc),
+                     instance_capacity=1 << 13, **opts, **route)
+        loss = (out.image * out.image).sum() + out.alpha.sum()
+        loss.backward()
+        img = out.image.detach().numpy()
+        assert out.image.shape == (48, 64, 3)
+        assert int(out.num_instances) > 0 and int(out.max_tile_count) > 0
+        np.testing.assert_allclose(img, img_x, atol=3e-5, err_msg=str(route))
+        np.testing.assert_allclose(float(loss.detach()), loss_x, rtol=1e-5)
+        for k in fields:
+            got = leaves[k].grad.numpy()
+            np.testing.assert_allclose(got, g_x[k], atol=3e-4,
+                                       err_msg=f"{k} {route}")
+            if case == "defaults" and not route:
+                assert _rel(got, g_p[k]) < 3e-3, k
+        if case == "defaults" and not route:
+            np.testing.assert_allclose(img, img_p, atol=3e-5)
+            np.testing.assert_allclose(float(loss.detach()), loss_p,
+                                       rtol=1e-5)
 
 
 def _oracle_setup(n, tight=False, res=128):
@@ -598,10 +626,11 @@ def _step_setup():
     return cams, images, jp, cfg
 
 
-def test_train_step_matches_jax():
-    """Two JAX steps, the state carried across, then one step in each
-    package on the same view: the loss, the gradients (read from the Adam
-    moment), the densification statistics and the new parameters."""
+@functools.lru_cache(maxsize=None)
+def _jax_steps():
+    """Two JAX steps on its CPU route (``"tiles"``), the state carried
+    across, then a third on view 1 -> (cameras, images, config, the state
+    before the third step, after it, its metrics)."""
     cams, images, jp, cfg = _step_setup()
     jds = jax_trainer.Dataset.from_views(cams, images)
     rk = {"backend": "tiles", "tile_capacity": 512,
@@ -615,6 +644,18 @@ def test_train_step_matches_jax():
         for v in (0, 2):
             state, _ = step(state, jnp.int32(v))
         j2, jm = step(state, jnp.int32(1))
+    return cams, images, jds, state, j2, jm
+
+
+@pytest.mark.parametrize("route", [
+    {}, {"backend": "tiles", "tile_capacity": 512}],
+    ids=["pallas", "tiles"])
+def test_train_step_matches_jax(route):
+    """Two JAX steps, the state carried across, then one step in each
+    package on the same view: the loss, the gradients (read from the Adam
+    moment), the densification statistics and the new parameters. The
+    port steps on its kernel route and on JAX's own ``"tiles"``."""
+    cams, images, jds, state, j2, jm = _jax_steps()
 
     carried = TrainState.from_numpy({
         "params": {f: _np(getattr(state.params, f)) for f in FIELDS},
@@ -628,11 +669,14 @@ def test_train_step_matches_jax():
     tcfg.densify.refine_every = 1000
     tds = Dataset.from_views([_camera(c) for c in cams], images)
     assert tds.scene_extent == pytest.approx(jds.scene_extent, rel=1e-6)
-    t2, tm = make_train_step(tcfg, tds, {"instance_capacity": 1 << 15})(
-        carried, 1)
+    t2, tm = make_train_step(tcfg, tds, {"instance_capacity": 1 << 15,
+                                         **route})(carried, 1)
     np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
                                rtol=1e-5)
     assert int(tm["num_instances"]) > 0 and int(tm["num_alive"]) == 200
+    if route:
+        assert int(tm["num_instances"]) == int(jm["num_instances"])
+        assert int(tm["max_tile_count"]) == int(jm["max_tile_count"])
     b1 = 0.9
     for f in PFIELDS:
         g_t = (t2.opt.mu[f].double() - b1 * carried.opt.mu[f].double()) / (

@@ -134,10 +134,12 @@ def test_train_state_carry_across_and_step_schedule():
 
 
 def test_unported_options_raise():
-    """What the port still lacks raises: multi-chip training and the
-    non-kernel backends. The dynamic models and datasets (ported, through
-    ``models/dynamic.py``) no longer do: the static ``Trainer`` takes a
-    dataset with times, as JAX's does, and ignores them."""
+    """What the port still lacks raises: multi-chip training. The dynamic
+    models and datasets (ported, through ``models/dynamic.py``) no longer
+    do: the static ``Trainer`` takes a dataset with times, as JAX's does,
+    and ignores them; nor do the non-kernel backends: ``render(backend=
+    "tiles")`` matches the kernel route, and the trainer steps on the XLA
+    surfel route for exact 2DGS and on ``"dense"``."""
     cfg, ds, params = _tiny()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_train_step(cfg, ds, grad_psum_axis="data")
@@ -146,10 +148,15 @@ def test_unported_options_raise():
     for kw in (dict(model_type=2), dict(model_type=3)):
         check_supported(cfg.replace(**kw), dynamic)
     assert Trainer(cfg, dynamic, params).dataset.times is not None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        render(params, ds.cameras[0], backend="tiles")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_train_step(cfg.replace(model_type=1), ds, {"backend": "surfel"})
+    tiles = render(params, ds.cameras[0], backend="tiles")
+    kernel = render(params, ds.cameras[0])
+    assert float((tiles.image - kernel.image).abs().max()) < 3e-5
+    assert int(tiles.num_instances) == int(kernel.num_instances) > 0
+    for model_type, backend in ((1, "surfel"), (0, "dense")):
+        st, m = make_train_step(cfg.replace(model_type=model_type), ds,
+                                {"backend": backend})(
+            TrainState.init(params, seed=0), 0)
+        assert st.step == 1 and np.isfinite(float(m["loss"])), backend
     with pytest.raises(ValueError, match="uniform resolution"):
         batch_cameras([ds.cameras[0],
                        orbit_cameras(1, width=16, device=CPU)[0]])

@@ -321,9 +321,13 @@ def test_render_app_views_and_video_match_jax(tmp_path):
         "--out", str(tmp_path / "f"), "--video", str(tmp_path / "f.avi"),
         "--fast", "--device", CPU]) == 0
     assert len(TV.read_mjpeg_avi(str(tmp_path / "f.avi"))) == 3
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
-        render_app.main(common + ["--out", str(tmp_path / "x"), "--backend",
-                                  "tiles", "--device", CPU])
+    # JAX's own route, "tiles" (its default): the same binning key, so
+    # no near-tie pixel is left out
+    assert render_app.main(common + ["--out", str(tmp_path / "x"),
+                                     "--backend", "tiles", "--device",
+                                     CPU]) == 0
+    _png_close(tmp_path / "x", tmp_path / "j", names,
+               lambda i: np.zeros((32, 40), bool))
 
 
 def test_render_app_grows_its_capacity_to_the_demand(tmp_path, monkeypatch,
