@@ -177,7 +177,27 @@ Phases, each a function of ``(device, scale)``:
    against the surfel kernels on 6(b)'s train2d cell, with the planes;
    (e) ``apps.render --backend tiles --orbit 2`` at 1280x720 on 11(c)'s
    edited model, with the densest tile and the tiles past JAX's
-   ``tile_capacity`` of 1024.
+   ``tile_capacity`` of 1024;
+13. real captures and the mesh renderers (``chip_smoke_capture.py``): (a)
+   phase 7's ``tpu_bricks`` written as a COLMAP capture with JPEG images
+   (the port's encoder, quality 90), loaded through the host library's
+   parsers and the port's JPEG decoder (the load timed beside the PNG
+   load), the cameras equal to the source's, every view's quantised
+   coefficients bitwise the encoder's blocks, trained through ``apps.train
+   --source_path`` as phase 7 trains the PNGs (the loss falling, the eval
+   PSNR rising and within 0.5 dB of phase 7's at each eval step, the three
+   kernels against their plain versions on the trained state); (b) the
+   host library built by ``g++``, its
+   PLY packing on a 1M-splat model and its COLMAP parsers on (a)'s
+   binaries timed against the numpy / Python paths, bitwise equal; (c)
+   phase 10(c)'s mesh over ``runs/tpu_bricks_mcmc`` at 1920x1080:
+   ``rasterize_mesh``, ``shade_gbuffer_lights``, ``path_trace_mesh``,
+   the hybrid frame (the splats through ``render`` and ``render_depth``
+   on the kernel route: expand and forward launched, both held against
+   their plain versions), ``restir_direct``, ``ssgi`` and
+   ``deferred_shade_gi``, each timed (the median of 3 calls after a warm
+   one) and finite, and the G-buffer on the card against the CPU at
+   160x90.
 
 Both compositing routes, 3DGS and surfels, go through one harness
 (``Route``, ``Frame``, ``kernel_records``, ``stage_times``). It prints
@@ -462,9 +482,16 @@ class Scale:
     #                       apps.render --backend tiles' width, height and
     #                       orbit views, the steps of the 3DGS and the 2DGS
     #                       loss bars and of the normal-loss run)
+    capture: tuple        # phase 13: (the mesh frame's width and height,
+    #                       the path tracer's samples, the card-against-CPU
+    #                       G-buffer's width and height, the splats of the
+    #                       PLY-packing model, the largest eval PSNR gap in
+    #                       dB between the JPEG capture and phase 7's
+    #                       PNGs); the JPEG capture trains as phase 7
+    #                       (data_*)
 
 
-FULL = Scale(1920, 1080, 4, 1, 1_000_000, 1 << 24, 50_000, 512, 4,
+FULL = Scale(1920, 1080, 4, 1, 1_000_000, 1 << 24, 50_000, 512, 3,
              150, 50_000, 100_000, 1 << 17, 800, 4, 30, 12, 60,
              800, (24, 8), 262_144, 100, 50, (25, 30, 25),
              6, 4, (100, 40, 25, 50, 20, 10), 5,
@@ -472,7 +499,8 @@ FULL = Scale(1920, 1080, 4, 1, 1_000_000, 1 << 24, 50_000, 512, 4,
              (48, 5, 150, 300), (20_000, 800, 4, 8, 8), (60, 30, 262_144),
              (800, 12, 128, 1 << 13),
              (1_000_000, 250_000, 20_000, 1280, 720, 12, 8),
-             (400, 1280, 720, 2, 150, 60, 20))
+             (400, 1280, 720, 2, 150, 60, 20),
+             (1920, 1080, 2, 160, 90, 1_000_000, 0.5))
 TINY = Scale(64, 48, 1, 512, 1_500, 1 << 16, 400, 64, 1,
              3, 300, 500, 1 << 10, 64, 2, 2, 0, 3,
              32, (3, 2), 1024, 12, 8, (4, 4, 3),
@@ -481,7 +509,8 @@ TINY = Scale(64, 48, 1, 512, 1_500, 1 << 16, 400, 64, 1,
              (32, 2, 3, 3), (300, 32, 2, 2, 2), (4, 2, 1024),
              (32, 2, 12, 1 << 10),
              (2_000, 500, 300, 64, 48, 3, 2),
-             (32, 64, 48, 2, 1, 1, 1))
+             (32, 64, 48, 2, 1, 1, 1),
+             (64, 48, 1, 32, 24, 2_000, 1.0))
 
 
 def log(msg: str) -> None:
@@ -1915,6 +1944,9 @@ def phase_training_2dgs(device: torch.device, scale: Scale) -> list[dict]:
 # the dataset path: a scene on disk to checkpoints, an eval curve and a PLY
 
 _BRICKS: dict = {}
+# phase 7's eval PSNR by step, keyed as ``_BRICKS``: phase 13(a) holds the
+# JPEG capture's curve against it
+PNG_CURVE: dict = {}
 
 
 def bricks(device: torch.device, scale: Scale) -> tuple[str, float]:
@@ -2038,6 +2070,8 @@ def phase_dataset(device: torch.device, scale: Scale) -> list[dict]:
         if not (all(math.isfinite(x) for x in psnrs)
                 and psnrs[-1] > psnrs[0]):
             raise AssertionError(f"eval PSNR {psnrs}")
+        PNG_CURVE[(device.type, res, scale.data_views)] = {
+            e["step"]: e["psnr"] for e in curve}
         # the PLY read back renders as the params it was written from
         ply, _ = load_ply(f"{model}/point_cloud.ply", device=device)
         cam = tr.dataset.cameras[0]
@@ -3307,20 +3341,15 @@ def export_formats(device: torch.device, scale: Scale) -> tuple[list, dict]:
                                       only_steps=False,
                                       kernels=VIEWER_KERNELS)
         mesh_ms = (time.perf_counter() - t0) * 1e3
-        verts, faces = [], []
-        for line in open(mesh):
-            if line.startswith("v "):
-                verts.append(line)
-            elif line.startswith("f "):
-                faces.append([int(x) for x in line.split()[1:]])
-        faces = np.asarray(faces)
+        verts, faces = read_obj_mesh(mesh)
     # the tiny rehearsal's sparse model (every 512th splat) leaves no
     # surface at two views: non-empty is required from 8 views up
-    empty = not verts or not len(faces)
+    empty = not len(verts) or not len(faces)
     if rc != 0 or (empty and views >= 8) or (not empty and (
-            faces.min() < 1 or faces.max() > len(verts))):
+            faces.min() < 0 or faces.max() >= len(verts))):
         raise AssertionError(f"mesh.obj: {len(verts)} vertices, "
                              f"{len(faces)} faces")
+    MESH.update(verts=verts, faces=faces)
     if device.type == "cuda" and any(launches[k] != views
                                      for k in VIEWER_KERNELS):
         raise AssertionError(f"mesh: launches {launches}, want {views} each")
@@ -3338,6 +3367,20 @@ def export_formats(device: torch.device, scale: Scale) -> tuple[list, dict]:
     recs = kernel_records(f"mesh_depth_{MODEL.parent.name}", fr, device,
                           scale, launches)
     return recs, out
+
+
+def read_obj_mesh(path: str) -> tuple[np.ndarray, np.ndarray]:
+    """An OBJ's triangles -> (vertices (V, 3) float32, faces (F, 3) int32,
+    0-based)."""
+    verts, faces = [], []
+    for line in open(path):
+        if line.startswith("v "):
+            verts.append([float(x) for x in line.split()[1:4]])
+        elif line.startswith("f "):
+            faces.append([int(x.split("/")[0]) - 1
+                          for x in line.split()[1:4]])
+    return (np.asarray(verts, np.float32).reshape(-1, 3),
+            np.asarray(faces, np.int32).reshape(-1, 3))
 
 
 def _depth_inputs(params, cam, geometry):
@@ -3779,6 +3822,8 @@ def editor_apps(device: torch.device, scale: Scale, sess, cam) -> dict:
 
 # phase 11's edited model, which phase 12(e) renders on the tiles route
 EDITED: dict = {}
+# phase 10(c)'s mesh (vertices, faces), which phase 13(c) renders
+MESH: dict = {}
 
 
 def phase_editor(device: torch.device, scale: Scale) -> list[dict]:
@@ -3807,6 +3852,13 @@ def phase_routes(device: torch.device, scale: Scale) -> list[dict]:
     return chip_smoke_routes.phase_routes(device, scale)
 
 
+def phase_capture(device: torch.device, scale: Scale) -> list[dict]:
+    """Phase 13, real captures and the mesh renderers
+    (``chip_smoke_capture.py``)."""
+    import chip_smoke_capture
+    return chip_smoke_capture.phase_capture(device, scale)
+
+
 # --------------------------------------------------------------------------
 
 
@@ -3831,7 +3883,6 @@ def main() -> int:
     records += run("7 dataset path", phase_dataset)
     records += run("8 the trainer's options", phase_options)
     records += run("9 the live-training session", phase_session)
-    drop_bricks()
     dyn = run("10 dynamic models, formats and export", phase_dynamic_export)
     static = next(r["it_per_s"] for r in records
                   if r["scene"].startswith("train_") and "it_per_s" in r)
@@ -3844,6 +3895,8 @@ def main() -> int:
     records += dyn
     records += run("11 the editor side", phase_editor)
     records += run("12 the XLA routes", phase_routes)
+    records += run("13 real captures and the mesh renderers", phase_capture)
+    drop_bricks()
     log(f"all phases ok in {time.perf_counter() - t_all:.2f} s")
     print(json.dumps({"kernels": records}))
     print(ident["smi"] or f"{ident['kind']}, power limit not readable")

@@ -7,6 +7,11 @@ at the repository root; ``ctypes`` loads it. The library's file name carries a
 hash of the sources and flags, so a changed source builds anew and an
 unchanged one is reused. The build happens at first use, never at import.
 
+``build_native`` compiles the host library (``native/*.cpp``: the COLMAP
+parsers, Morton codes, PLY packing and the JPEG decoder) with one ``g++``
+into the same directory, its name also carrying a hash of its sources and
+flags; ``core/native.py`` loads it. It needs no CUDA.
+
 ``LAUNCHES`` counts kernel launches by name. Each wrapper adds one where it
 launches its kernel and nowhere else, so a caller can zero the counts, run
 a path, and see which kernels that path went through.
@@ -31,6 +36,10 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "divshot_tpu_torc
 # beside the library (``ptxas_report``)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+NATIVE_SRC = Path(__file__).resolve().parent / "native"
+# the JAX package's flags for its host library (divshot_tpu/core/native.py)
+GXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++20", "-pthread"]
 
 LAUNCHES = {"expand": 0, "forward": 0, "backward": 0, "surfel_forward": 0,
             "surfel_backward": 0}
@@ -114,6 +123,39 @@ def build() -> tuple[Path, float]:
                            f"\n{res.stderr}")
     shutil.rmtree(objs)
     so.with_suffix(".ptxas.txt").write_text("".join(report))
+    os.replace(tmp, so)
+    return so, time.perf_counter() - t0
+
+
+def native_library_path() -> Path:
+    h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
+    for src in sorted(NATIVE_SRC.glob("*.cpp")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libdivshot_native_{h.hexdigest()[:16]}.so"
+
+
+def build_native() -> tuple[Path, float]:
+    """Compile the host library with ``g++`` if its sources changed ->
+    (path, seconds spent compiling, 0 when it was already built). Raises
+    ``RuntimeError`` when the compiler fails or is missing."""
+    so = native_library_path()
+    if so.exists():
+        return so, 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    cmd = ["g++", *GXX_FLAGS,
+           *(str(p) for p in sorted(NATIVE_SRC.glob("*.cpp"))),
+           "-o", str(tmp)]
+    t0 = time.perf_counter()
+    try:
+        res = subprocess.run(cmd, capture_output=True, text=True,
+                             timeout=300)
+    except OSError as e:
+        raise RuntimeError(f"g++ not found: {e}") from e
+    if res.returncode != 0:
+        raise RuntimeError(f"g++ failed ({res.returncode}): {' '.join(cmd)}"
+                           f"\n{res.stderr}")
     os.replace(tmp, so)
     return so, time.perf_counter() - t0
 

@@ -1,7 +1,9 @@
 """COLMAP sparse-model readers and writers, bin and txt (counterpart of
-``divshot_tpu/gsio/colmap.py``, numpy and ``struct`` only, copied; the
-binary readers are its pure-Python paths, without the native parser).
-Formats per the public COLMAP documentation.
+``divshot_tpu/gsio/colmap.py``, numpy and ``struct``, copied). As in JAX,
+the binary ``images.bin`` and ``points3D.bin`` readers parse through the
+host library (``core/native.py``) when it is built, and take their
+pure-Python paths, with the same results, when it is not. Formats per the
+public COLMAP documentation.
 """
 
 from __future__ import annotations
@@ -57,6 +59,17 @@ def read_cameras_bin(path: str) -> dict[int, ColmapCamera]:
 
 
 def read_images_bin(path: str) -> dict[int, ColmapImage]:
+    from divshot_tpu_torch.core import native
+    with open(path, "rb") as f:
+        res = native.parse_images_bin(f.read())
+    if res is not None:
+        return {iid: ColmapImage(name, cid, q, t)
+                for iid, q, t, cid, name in res}
+    return read_images_bin_py(path)
+
+
+def read_images_bin_py(path: str) -> dict[int, ColmapImage]:
+    """``read_images_bin``'s pure-Python path."""
     out = {}
     with open(path, "rb") as f:
         (n,) = _read(f, "<Q")
@@ -78,6 +91,16 @@ def read_images_bin(path: str) -> dict[int, ColmapImage]:
 
 
 def read_points3d_bin(path: str) -> tuple[np.ndarray, np.ndarray]:
+    from divshot_tpu_torch.core import native
+    with open(path, "rb") as f:
+        res = native.parse_points3d_bin(f.read())
+    if res is not None:
+        return res
+    return read_points3d_bin_py(path)
+
+
+def read_points3d_bin_py(path: str) -> tuple[np.ndarray, np.ndarray]:
+    """``read_points3d_bin``'s pure-Python path."""
     with open(path, "rb") as f:
         (n,) = _read(f, "<Q")
         pts = np.empty((n, 3), np.float64)

@@ -13,9 +13,11 @@ package writes:
   sigmoid(opacity));
 - the SH rest dropped; the antialiasing flag as in the standard PLY.
 
-The packing is numpy on the host. ``morton_order`` is the numpy coder:
-JAX calls its native C++ coder when that library is built, which gives the
-same codes (``tests/test_torch_formats.py``).
+The packing is numpy on the host. ``morton_order`` codes through the host
+library's multithreaded C++ coder (``core/native.py``) when it is built,
+as JAX does, and with numpy when it is not; the two can differ at a
+bucket edge by float rounding, each as in JAX (``tests/test_torch_jpeg.py``
+holds both against JAX's).
 """
 
 from __future__ import annotations
@@ -39,6 +41,10 @@ VERTEX_PROPS = ["packed_position", "packed_rotation", "packed_scale",
 def morton_order(pos: np.ndarray) -> np.ndarray:
     """Sort order by the 21-bit-per-axis interleaved Morton code of the
     positions in their bounding box (stable)."""
+    from divshot_tpu_torch.core import native
+    codes = native.morton_codes(np.asarray(pos, np.float32))
+    if codes is not None:
+        return np.argsort(codes, kind="stable")
     pos = np.asarray(pos, np.float32)
     pmin = pos.min(0)
     pmax = pos.max(0)

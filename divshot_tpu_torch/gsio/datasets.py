@@ -2,16 +2,18 @@
 COLMAP scenes and Blender / NeRF-synthetic scenes into the trainer's
 ``Dataset`` (images, cameras and SfM seed points) on ``device``.
 
-Images are read by ``gsio/png.py``, so only PNG files are taken (8-bit
-greyscale, RGB or RGBA); downscaling to ``max_width`` x ``max_height`` is
-Pillow's Lanczos, as in JAX. The arithmetic from uint8 pixels to the
+Images are read by ``gsio/image.read_image``: PNG (8-bit greyscale, RGB
+or RGBA) and JPEG (greyscale or RGB, decoded bitwise as Pillow decodes
+it; a CMYK JPEG raises, where JAX would read its four channels as RGBA);
+downscaling to ``max_width`` x ``max_height`` is Pillow's Lanczos, as in
+JAX. The arithmetic from uint8 pixels to the
 stored uint8 image (alpha compositing over a white or black background,
 greyscale repeated to three channels) is JAX's, float32 for float32.
 
 Masks (``use_mask``), as in JAX: a file of the image's stem in a
-``masks`` folder beside the images or beside their folder wins (PNG only,
-converted to greyscale and resized nearest to the image), then the PNG's
-alpha, then keep-all; stored uint8 ``m * 255``.
+``masks`` folder beside the images or beside their folder wins (PNG or
+JPEG, converted to greyscale and resized nearest to the image), then the
+PNG's alpha, then keep-all; stored uint8 ``m * 255``.
 
 External poses (nerfstudio, OpenSfM, RealityCapture, Metashape) are read
 by ``gsio/readers.py`` and their images loaded by
@@ -27,8 +29,9 @@ import os
 import numpy as np
 
 from divshot_tpu_torch.gsio import colmap as C
-from divshot_tpu_torch.gsio.png import (read_png, resize_lanczos,
-                                        resize_nearest, to_grey)
+from divshot_tpu_torch.gsio.image import read_image
+from divshot_tpu_torch.gsio.png import (resize_lanczos, resize_nearest,
+                                        to_grey)
 from divshot_tpu_torch.splat.camera import Camera
 from divshot_tpu_torch.train.trainer import Dataset
 
@@ -37,7 +40,7 @@ def _load_image(path: str, max_w: int, max_h: int,
                 white_bg: bool = False):
     """-> ((H, W, 3) float32 in [0, 1], RGBA composited over the
     background; the alpha (H, W) float32, or None without one)."""
-    img = read_png(path)
+    img = read_image(path)
     h, w = img.shape[:2]
     scale = min(1.0, max_w / w, max_h / h)
     if scale < 1.0:
@@ -73,7 +76,7 @@ def _load_mask(img_path: str, alpha: np.ndarray | None,
     wins, then the PNG's alpha, then keep-all."""
     mp = _find_mask_path(img_path)
     if mp is not None:
-        m = to_grey(read_png(mp))
+        m = to_grey(read_image(mp))
         if m.shape != tuple(shape[:2]):
             m = resize_nearest(m, shape[1], shape[0])
         return m.astype(np.float32) / 255.0

@@ -6,8 +6,10 @@ Record layout of the files this repo writes: 59 float32 per splat (x y z,
 f_dc_0..2, f_rest_0..44 channel-major, opacity logit, scale_0..2 log,
 rot_0..3 wxyz); the antialiasing flag is the header comment
 ``splatx.anti_aliasing=1``. The reader also takes graphdeco files with
-normals and any property order. Parsing and packing are numpy only; the
-arrays become tensors at the end. The writers drop dead splats
+normals and any property order. Parsing is numpy; the 59-float records
+are packed by the host library's threads (``core/native.py``) when it is
+built, as in JAX, else by numpy, to the same bytes. The arrays become
+tensors at the end. The writers drop dead splats
 (``GaussianParams.compact_numpy``).
 """
 
@@ -117,12 +119,29 @@ def load_ply(path: str, *, device="cuda") -> tuple[GaussianParams, dict]:
     return params, meta
 
 
+def pack_records_numpy(d: dict) -> np.ndarray:
+    """The (n, 59) float32 records of ``compact_numpy``'s arrays (f_rest
+    channel-major), with numpy: what the host library's
+    ``pack_ply_records`` gives with its threads."""
+    n, k = d["means"].shape[0], d["shN"].shape[1]
+    rec = np.zeros((n, 59), np.float32)
+    rec[:, 0:3] = d["means"]
+    rec[:, 3:6] = d["sh0"]
+    rest = np.zeros((n, 3, 15), np.float32)
+    if k:
+        rest[:, :, :k] = d["shN"].transpose(0, 2, 1)      # channel-major
+    rec[:, 6:51] = rest.reshape(n, 45)
+    rec[:, 51] = d["opacity"]
+    rec[:, 52:55] = d["scales"]
+    rec[:, 55:59] = d["quats"]
+    return rec
+
+
 def save_ply(path: str, params: GaussianParams, *,
              antialiased: bool = False) -> None:
     """Write the tinygsplat-layout 3DGS PLY (59 floats, no normals)."""
     d = params.compact_numpy()
     n = d["means"].shape[0]
-    k = d["shN"].shape[1]
 
     header = io.BytesIO()
     header.write(b"ply\nformat binary_little_endian 1.0\n")
@@ -139,16 +158,11 @@ def save_ply(path: str, params: GaussianParams, *,
         header.write(f"property float {nm}\n".encode())
     header.write(b"end_header\n")
 
-    rec = np.zeros((n, 59), np.float32)
-    rec[:, 0:3] = d["means"]
-    rec[:, 3:6] = d["sh0"]
-    rest = np.zeros((n, 3, 15), np.float32)
-    if k:
-        rest[:, :, :k] = d["shN"].transpose(0, 2, 1)  # channel-major
-    rec[:, 6:51] = rest.reshape(n, 45)
-    rec[:, 51] = d["opacity"]
-    rec[:, 52:55] = d["scales"]
-    rec[:, 55:59] = d["quats"]
+    from divshot_tpu_torch.core import native
+    rec = native.pack_ply_records(d["means"], d["sh0"], d["shN"],
+                                  d["opacity"], d["scales"], d["quats"])
+    if rec is None:
+        rec = pack_records_numpy(d)
     with open(path, "wb") as f:
         f.write(header.getvalue())
         f.write(rec.tobytes())

@@ -19,8 +19,8 @@ and numpy: the port's stand-in for the Pillow calls of
   pipeline with Pillow's bicubic kernel (a = -0.5, support 2), its default
   ``Image.resize(size)``, for the environment plate of
   ``divshot_tpu/scene/components.py``.
-- ``png_size``: the width and height from the IHDR chunk alone, for the
-  pose readers' Pillow size reads (``divshot_tpu/gsio/readers.py``).
+- ``png_size``: the width and height from the IHDR chunk alone
+  (``gsio/image.image_size``).
 - ``resize_nearest`` and ``to_grey``: Pillow's ``Image.NEAREST`` resize and
   ``convert("L")``, for the masks of ``divshot_tpu/gsio/datasets.py``.
 """
@@ -87,8 +87,7 @@ def read_png(path: str) -> np.ndarray:
     with open(path, "rb") as f:
         data = f.read()
     if not data.startswith(_SIGNATURE):
-        raise ValueError(f"{path}: not a PNG file (divshot_tpu_torch "
-                         f"reads PNG images only)")
+        raise ValueError(f"{path}: not a PNG file")
     header, idat = None, []
     for tag, body in _chunks(data):
         if tag == b"IHDR":

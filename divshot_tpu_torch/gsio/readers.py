@@ -6,9 +6,9 @@ None; ``gsio/datasets.load_dataset`` turns them into a ``Dataset``.
 
 Where JAX reads an image's size with Pillow (a nerfstudio frame without
 ``w`` / ``h``, a RealityCapture row without ``width`` / ``height``), the
-port reads it from the PNG's IHDR chunk (``gsio/png.png_size``); a file
-that is not a PNG raises the JAX function's own error there ("image size
-unknown; pass width=/height=").
+port reads it from the file's header (``gsio/image.image_size``: a PNG's
+IHDR chunk, a JPEG's SOF header); a file that is neither raises the JAX
+function's own error there ("image size unknown; pass width=/height=").
 """
 
 from __future__ import annotations
@@ -20,12 +20,12 @@ import xml.etree.ElementTree as ET
 import numpy as np
 
 from divshot_tpu_torch.gsio.ply import read_ply_header
-from divshot_tpu_torch.gsio.png import png_size
+from divshot_tpu_torch.gsio.image import image_size
 from divshot_tpu_torch.splat.camera import Camera
 
 
 def _image_size(path: str) -> tuple[int, int]:
-    size = png_size(path) if os.path.exists(path) else None
+    size = image_size(path) if os.path.exists(path) else None
     if size is None:
         raise ValueError("image size unknown; pass width=/height=")
     return size

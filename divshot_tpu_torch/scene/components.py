@@ -4,10 +4,13 @@
 ``Environment`` (pure colour, analytic sun-sky, image plate) and the
 light descriptors.
 
-The environment's image is read with ``gsio/png.read_png`` (PNG only;
-other formats raise) and resized as Pillow's default ``Image.resize``
-(bicubic), with JAX's arithmetic kept: the raw 0-255 values are scaled by
-255 again and clipped, so every non-zero channel becomes 255.
+The environment's image is read by its magic bytes: a Radiance ``.hdr``
+with ``gsio/hdr.read_hdr`` (uint8 RGB, each float value times 255, as
+``imageio`` returns it through OpenCV), a PNG or JPEG with
+``gsio/image.read_image``. It is resized as Pillow's default
+``Image.resize`` (bicubic), with JAX's arithmetic kept: the raw 0-255
+values are scaled by 255 again and clipped, so every non-zero channel
+becomes 255.
 """
 
 from __future__ import annotations
@@ -172,10 +175,16 @@ class Environment:
         return np.asarray([st * cp, ct, st * sp], np.float32)
 
     def load_hdr(self, path: str | None = None):
-        """Read the plate's image (PNG) as float32 0-255 values."""
-        from divshot_tpu_torch.gsio.png import read_png
+        """Read the plate's image (Radiance, PNG or JPEG) as float32
+        0-255 values."""
+        from divshot_tpu_torch.gsio.hdr import is_hdr, read_hdr
+        from divshot_tpu_torch.gsio.image import read_image
         self.hdr_path = path or self.hdr_path
-        self._hdr = np.asarray(read_png(self.hdr_path), np.float32)
+        with open(self.hdr_path, "rb") as f:
+            radiance = is_hdr(f.read(2))
+        img = read_hdr(self.hdr_path) if radiance else read_image(
+            self.hdr_path)
+        self._hdr = np.asarray(img, np.float32)
         self.mode = EnvironmentMode.HDR
         return self._hdr
 

@@ -10,7 +10,8 @@ app of the port against the JAX package on the CPU.
   JAX writers swapped for the port's).
 - The dispatch; ``morton_order`` against JAX's (its native C++ coder, and
   its numpy coder); ``kmeans_1d`` and ``make_codebooks`` against JAX's.
-- The pose readers on ``tests/test_readers.py``'s fixtures: the loaded
+- The pose readers on ``tests/test_readers.py``'s fixtures (its OpenSfM
+  images JPEG, as there; a JPEG's size from its SOF header): the loaded
   datasets equal to JAX's (images bitwise, cameras rtol 1e-6); the mesh
   readers on ``tests/test_mesh_io.py``'s fixtures: every array equal.
 - ``apps.export``: each format and back, against JAX's app.
@@ -38,12 +39,14 @@ from divshot_tpu.gsio.datasets import load_dataset as jax_load_dataset
 from divshot_tpu.gsio.synthetic import random_scene as jax_random_scene
 
 from divshot_tpu_torch.apps import export as export_app
+from divshot_tpu_torch.core import native as port_native
 from divshot_tpu_torch.gsio import compressed as TC
 from divshot_tpu_torch.gsio import io as TIO
 from divshot_tpu_torch.gsio import kmeans as TK
 from divshot_tpu_torch.gsio import mesh_io as TM
 from divshot_tpu_torch.gsio import readers
 from divshot_tpu_torch.gsio.datasets import load_dataset
+from divshot_tpu_torch.gsio.jpeg import jpeg_size
 from divshot_tpu_torch.gsio.png import png_size
 from divshot_tpu_torch.splat.gaussians import GaussianParams
 from tests.test_mesh_io import CUBE_F, CUBE_V, _write_fbx
@@ -199,7 +202,8 @@ def test_dispatch(tmp_path):
 def test_morton_order_matches_both_jax_coders(monkeypatch):
     """JAX orders by its native C++ coder when the library builds (it does
     on this host: ``native.get_lib()``), else by its numpy coder; the
-    port's numpy coder gives the same order as both."""
+    port's order (its own host library's coder, and its numpy coder) is
+    the same as both."""
     rng = np.random.default_rng(5)
     pos = np.concatenate([rng.normal(0, 1, (2000, 3)),
                           np.zeros((3, 3)), np.ones((2, 3))]).astype(
@@ -209,6 +213,8 @@ def test_morton_order_matches_both_jax_coders(monkeypatch):
     np.testing.assert_array_equal(port, JC.morton_order(pos))
     monkeypatch.setattr(jax_native, "morton_codes", lambda p: None)
     np.testing.assert_array_equal(port, JC.morton_order(pos))
+    monkeypatch.setattr(port_native, "morton_codes", lambda p: None)
+    np.testing.assert_array_equal(TC.morton_order(pos), port)
     flat = np.zeros((4, 3), np.float32)     # a zero-size bounding box
     np.testing.assert_array_equal(TC.morton_order(flat),
                                   JC.morton_order(flat))
@@ -266,8 +272,8 @@ def _nerfstudio(root, sizes=True):
 
 def _opensfm(root):
     (root / "images").mkdir(parents=True)
-    # the fixture's images as PNG (the port reads no JPEG)
-    for n in ("a.png", "b.png"):
+    # the fixture's images as JPEG, as tests/test_readers.py writes them
+    for n in ("a.jpg", "b.jpg"):
         _write_img(str(root / "images" / n))
     rec = [{
         "cameras": {"cam1": {"projection_type": "perspective",
@@ -275,11 +281,11 @@ def _opensfm(root):
                     "fish": {"projection_type": "fisheye",
                              "width": 32, "height": 24}},
         "shots": {
-            "a.png": {"camera": "cam1", "rotation": [0.0, 0.0, 0.0],
+            "a.jpg": {"camera": "cam1", "rotation": [0.0, 0.0, 0.0],
                       "translation": [0.0, 0.0, 4.0]},
-            "b.png": {"camera": "cam1", "rotation": [0.0, 0.3, 0.0],
+            "b.jpg": {"camera": "cam1", "rotation": [0.0, 0.3, 0.0],
                       "translation": [0.5, 0.0, 4.0]},
-            "c.png": {"camera": "fish", "rotation": [0.1, 0.0, 0.0],
+            "c.jpg": {"camera": "fish", "rotation": [0.1, 0.0, 0.0],
                       "translation": [0.0, 0.0, 4.0]},
         },
         "points": {
@@ -342,24 +348,36 @@ def test_pose_readers_match_jax(tmp_path, kind):
 
 
 def test_nerfstudio_sizes_and_type_codes(tmp_path):
-    """Frames without w / h take the PNG's size (JAX: Pillow's); the
-    integer code 0 is nerfstudio; a file path dispatches by extension."""
+    """Frames without w / h take the image's size from its header (JAX:
+    Pillow's), a PNG's and a JPEG's; the integer code 0 is nerfstudio; a
+    file path dispatches by extension."""
     src = _nerfstudio(tmp_path / "ns", sizes=False)
+    # frame 2 as a JPEG under its own name
+    meta = json.loads((tmp_path / "ns" / "transforms.json").read_text())
+    meta["frames"][2]["file_path"] = "images/frame_00002.jpg"
+    _write_img(f"{src}/images/frame_00002.jpg", seed=2)
+    (tmp_path / "ns" / "transforms.json").write_text(json.dumps(meta))
     train, _ = load_dataset(src, 0, device=CPU)
     jtrain, _ = jax_load_dataset(src, 0)
     _assert_same_dataset(train, jtrain)
     assert png_size(f"{src}/images/frame_00000.png") == (32, 24)
+    assert jpeg_size(f"{src}/images/frame_00002.jpg") == (32, 24)
     t2, _ = load_dataset(f"{src}/transforms.json", device=CPU)
     assert t2.num_views == 3
 
 
 def test_realitycapture_size_from_png_header(tmp_path):
-    """The size comes from the PNG's IHDR chunk; a file that is not a PNG
-    raises JAX's own "pass width=/height=" error, and the given width and
-    height are taken as they are."""
+    """The size comes from the PNG's IHDR chunk, or a JPEG's SOF header
+    whatever the file's name; a file that is neither raises JAX's own
+    "pass width=/height=" error, and the given width and height are taken
+    as they are."""
     csv = _realitycapture(tmp_path / "rc")
     cams, paths, _, _ = readers.load_realitycapture(csv, device=CPU)
     assert (cams[0].width, cams[0].height) == (32, 24)
+    _write_img(str(tmp_path / "rc" / "i1.jpg"), w=40, h=30)
+    os.replace(tmp_path / "rc" / "i1.jpg", tmp_path / "rc" / "i1.png")
+    cams, _, _, _ = readers.load_realitycapture(csv, device=CPU)
+    assert (cams[0].width, cams[0].height) == (40, 30)
     (tmp_path / "rc" / "i1.png").write_bytes(b"\xff\xd8\xff\xe0 not a png")
     with pytest.raises(ValueError, match="pass width=/height="):
         readers.load_realitycapture(csv, device=CPU)

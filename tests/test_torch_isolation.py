@@ -1,11 +1,12 @@
-"""The port stands alone: with JAX, flax, PIL, imageio and ``divshot_tpu``
-blocked, every module of ``divshot_tpu_torch`` imports and
+"""The port stands alone: with JAX, flax, PIL, imageio, OpenCV (``cv2``)
+and ``divshot_tpu`` blocked, every module of ``divshot_tpu_torch`` imports,
+a JPEG, a Radiance file and a 32x32 mesh G-buffer are read and made, and
 ``chip_smoke.py``'s kernel (with the backward kernels' unit split),
 viewer-path, training-path, 2DGS training-path, dataset-path,
 trainer-options, live-session, dynamic-models-and-export and editor
 phases and the XLA routes' phase run on the CPU at a tiny scale, with a
 ``kernels`` record for every kernel. Also checks on the port's
-files: no JAX, flax, PIL, imageio or ``divshot_tpu`` import outside
+files: no JAX, flax, PIL, imageio, cv2 or ``divshot_tpu`` import outside
 docstrings, no file over 200 KB, and the kernel build directory ignored by
 git."""
 
@@ -18,7 +19,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "divshot_tpu_torch"
-BLOCKED = ("jax", "jaxlib", "flax", "PIL", "imageio", "divshot_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "PIL", "imageio", "cv2", "divshot_tpu")
 
 _BLOCKED_RUN = r"""
 import contextlib, importlib, io, pkgutil, sys
@@ -31,6 +32,28 @@ names = [m.name for m in pkgutil.walk_packages(divshot_tpu_torch.__path__,
                                                "divshot_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+import os, tempfile
+import numpy as np
+from divshot_tpu_torch.gsio.hdr import read_hdr
+from divshot_tpu_torch.gsio.image import read_image
+from divshot_tpu_torch.raster.mesh_raster import rasterize_mesh
+from divshot_tpu_torch.splat.camera import Camera
+from divshot_tpu_torch.viewer.jpeg import encode_jpeg
+with tempfile.TemporaryDirectory() as tmp:
+    img = np.arange(40 * 24 * 3, dtype=np.uint8).reshape(24, 40, 3)
+    with open(os.path.join(tmp, "a.jpg"), "wb") as f:
+        f.write(encode_jpeg(img, 90))
+    assert read_image(os.path.join(tmp, "a.jpg")).shape == (24, 40, 3)
+    with open(os.path.join(tmp, "a.hdr"), "wb") as f:
+        f.write(b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n-Y 1 +X 2\n"
+                + bytes([200, 100, 50, 126, 128, 64, 32, 136]))
+    assert read_hdr(os.path.join(tmp, "a.hdr")).tolist() == [
+        [[50, 25, 12], [255, 255, 255]]]
+cam = Camera.look_at((0, 0, -3.0), (0, 0, 0), (0, -1, 0), 50.0, 32, 32,
+                     device="cpu")
+gb = rasterize_mesh(np.array([[-1, -1, 0], [1, -1, 0], [0, 1, 0]],
+                             np.float32), np.array([[0, 1, 2]]), cam)
+assert (gb.tri_id == 0).sum() > 50
 import chip_smoke
 buf = io.StringIO()
 with contextlib.redirect_stdout(buf):
@@ -200,7 +223,8 @@ def test_chip_smoke_fails_without_a_card():
 def _port_files():
     files = sorted(p for p in PORT.rglob("*") if p.is_file()
                    and "__pycache__" not in p.parts)
-    files += [REPO / "chip_smoke.py", REPO / "chip_smoke_routes.py"]
+    files += [REPO / "chip_smoke.py", REPO / "chip_smoke_routes.py",
+              REPO / "chip_smoke_capture.py"]
     files += sorted((REPO / "tests").glob("test_torch_*.py"))
     return files
 
@@ -221,8 +245,8 @@ def _code_without_docstrings(path: Path) -> str:
 
 
 def test_port_imports_no_jax_or_reference():
-    pattern = re.compile(r"\bimport\s+(jax|flax|PIL|imageio)\b|\bfrom\s+"
-                         r"(jax|flax|PIL|imageio)\b|\bdivshot_tpu\.")
+    pattern = re.compile(r"\bimport\s+(jax|flax|PIL|imageio|cv2)\b|\bfrom"
+                         r"\s+(jax|flax|PIL|imageio|cv2)\b|\bdivshot_tpu\.")
     modules = [p for p in _port_files()
                if p.suffix == ".py" and not p.name.startswith("test_")]
     assert len(modules) >= 24

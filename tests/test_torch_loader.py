@@ -94,12 +94,20 @@ def test_masks_match_jax_loaders(tmp_path, case):
 
 
 def test_mask_in_another_format_raises(tmp_path):
+    """A mask file that is neither PNG nor JPEG (a BMP under a ``.jpg``
+    name, which Pillow would open) raises; a JPEG mask loads as JAX's."""
     src = _blender(tmp_path / "jpg", 1)
     (tmp_path / "jpg" / "train" / "masks").mkdir()
-    Image.fromarray(np.full((24, 32), 255, np.uint8), "L").save(
-        tmp_path / "jpg" / "train" / "masks" / "r_0.jpg")
+    mask = tmp_path / "jpg" / "train" / "masks" / "r_0.jpg"
+    m = np.full((24, 32), 255, np.uint8)
+    m[:, :9] = 0
+    Image.fromarray(m, "L").save(mask, format="BMP")
     with pytest.raises(ValueError, match="PNG"):
         load_dataset(src, "blender", use_mask=True, device=CPU)
+    Image.fromarray(m, "L").save(mask)
+    train, _ = load_dataset(src, "blender", use_mask=True, device=CPU)
+    ref, _ = jax_load_dataset(src, "blender", use_mask=True)
+    np.testing.assert_array_equal(train.masks.numpy(), np.asarray(ref.masks))
 
 
 @pytest.mark.parametrize("mode", ["L", "RGB", "RGBA"])

@@ -354,7 +354,11 @@ def test_environment_plates_match_jax(tmp_path, size):
 
 
 def test_environment_rejects_non_png(tmp_path):
-    (tmp_path / "sky.jpg").write_bytes(b"\xff\xd8\xff\xe0 not a png")
+    """A plate that is neither Radiance, PNG nor JPEG (a BMP under a
+    ``.jpg`` name) raises."""
+    from PIL import Image
+    Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(
+        tmp_path / "sky.jpg", format="BMP")
     with pytest.raises(ValueError, match="PNG"):
         TS.Environment(mode=TS.EnvironmentMode.HDR,
                        hdr_path=str(tmp_path / "sky.jpg")
