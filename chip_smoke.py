@@ -44,7 +44,15 @@ Phases, each a function of ``(device, scale)``:
    1920x1080, whose longest tile never stops, with its stage breakdown.
    Each of (a)-(e) counts its own kernel launches, and each holds the
    three kernels against their plain versions at its own shapes (the
-   backward with the cotangent of its loss and its AbsGS setting);
+   backward with the cotangent of its loss and its AbsGS setting), and the
+   segment kernel (``csrc/segment.cu``, the per-splat sums of the
+   backward's rows, one launch a backward) against its plain version run
+   in float64, within the worst-case bound of its order of additions, a
+   second launch bitwise (``check_segment``); (b) also runs the step twice
+   from one state in PyTorch's default mode, the first step from the fresh
+   state and 2 steps from the trained one, and requires the losses,
+   parameters, Adam moments, densify statistics and generator bitwise
+   equal (``reproducible``);
 6. the exact-2DGS training path (``model_type=1``): (a) the 2DGS loss bar
    of ``tests/test_train.py:103-113`` met through the surfel kernels
    over 20 steps (``BAR_STEPS``; the reference's test runs 60); (b)
@@ -56,8 +64,10 @@ Phases, each a function of ``(device, scale)``:
    of ``apps.train --demo --model_type 1``. Each counts its own launches
    of the expand and the two surfel kernels and holds them against their
    plain versions at its own shapes (the backward with the cotangent of
-   its loss). Phase 3 also holds the surfel kernels against their plain
-   versions at nch 3 and 5, with NaN, edge-on and clamping surfels;
+   its loss), the segment kernel as in 5, and (b) the step twice from one
+   state, bitwise, as in 5(b). Phase 3 also holds the surfel kernels
+   against their plain versions at nch 3 and 5, with NaN, edge-on and
+   clamping surfels;
 7. the dataset path: (a) the procedural ``tpu_bricks`` scene traced on
    the card at its full 800x800 (24 train and 8 test views, cut from 100 +
    25 for the time limit) into a temporary directory and loaded; (b)
@@ -177,7 +187,9 @@ Phases, each a function of ``(device, scale)``:
    1920x1080 beside the kernel-binned frame; (c) the loss bars of (5(a),
    6(a)) through ``"tiles"`` and ``"surfel"``, and MCMC with the
    normal-consistency loss through ``"tiles"``; (d) the XLA surfel route
-   against the surfel kernels on 6(b)'s train2d cell, with the planes;
+   against the surfel kernels on 6(b)'s train2d cell, with the planes, and
+   the gradients of a loss with the depth planes (the scales' through
+   them a float32 cancellation, held at JAX's own kernel route's gap);
    (e) ``apps.render --backend tiles --orbit 2`` at 1280x720 on 11(c)'s
    edited model, with the densest tile and the tiles past JAX's
    ``tile_capacity`` of 1024;
@@ -205,7 +217,9 @@ Phases, each a function of ``(device, scale)``:
    (``divshot_tpu_torch/dist``, ``chip_smoke_dist.py``): (a) phase 5(b)'s
    train cell through ``make_parallel_train_step`` and
    ``make_overlap_train_step`` on a 1x1 mesh over NCCL, bitwise the serial
-   step, one launch of each kernel a step; (b) two processes spawned on
+   step in PyTorch's default mode (the serial step's first step run
+   twice bitwise first), one launch of each kernel a step; (b) two
+   processes spawned on
    the one card over gloo: the 2x1 parallel and overlap steps and a 1x2
    mesh (half the moment rows a rank), each first step against the
    serial step, the ranks' parameters bitwise equal, ``MultiHostTrainer``'s
@@ -244,6 +258,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from chip_smoke_repro import check_segment, reproducible
 from divshot_tpu_torch import _build
 from divshot_tpu_torch import scene as SC
 from divshot_tpu_torch.apps import edit as edit_app
@@ -368,10 +383,16 @@ KERNELS = {
     "surfel_backward": dict(
         source="divshot_tpu_torch/csrc/surfel_backward.cu",
         replaces="divshot_tpu/raster/pallas_surfel.py:202"),
+    # no Pallas kernel: JAX's XLA cumsum formula (pallas_bin.py:366-398,
+    # segment_rows_sorted), which the port's kernel replaces
+    "segment_rows": dict(source="divshot_tpu_torch/csrc/segment.cu",
+                         replaces="divshot_tpu/raster/pallas_bin.py:366"),
 }
 VIEWER_KERNELS = ("expand", "forward")
-TRAIN_KERNELS = ("expand", "forward", "backward")
-SURFEL_KERNELS = ("expand", "surfel_forward", "surfel_backward")
+# each backward's rows go through one launch of the segment kernel
+TRAIN_KERNELS = ("expand", "forward", "backward", "segment_rows")
+SURFEL_KERNELS = ("expand", "surfel_forward", "surfel_backward",
+                  "segment_rows")
 
 
 @dataclass(frozen=True)
@@ -1368,6 +1389,9 @@ def kernel_records(scene: str, fr: Frame, device: torch.device,
              "units": int((units[:, 0] >= 0).sum()),
              "longest_tile": int((tile_start[1:] - tile_start[:-1]).max()),
              **bkw}))
+        rows.append(check_segment(
+            route.bwd(table, tile_start, cot, fwd, **kw, **bkw), fr.bins,
+            route.grad_rows + nch, device, it))
     recs = _records(scene, rows, launches, per_step)
     log(f"  {scene} kernels at {w}x{h}, nch {nch}, {n} splats ({owning} "
         f"with instances), capacity {cap}, demand {int(fr.pp.total)}, "
@@ -1380,6 +1404,12 @@ def kernel_records(scene: str, fr: Frame, device: torch.device,
                f"the entries' scales {r['max_scale_rel_err']:.3e} "
                f"({r['outlier_cols']} of {kept} columns above 1e3 times "
                f"their row's floor)" if "max_rel_err" in r else "")
+            + (f", {r['rows']} rows of {r['live_instances']} live "
+               f"instances, longest segment {r['longest_segment']}, err "
+               f"{r['bound_ratio']:.3e} of its order's bound from float64, "
+               f"a second launch bitwise, index_add_ "
+               f"{r['library_ms']:.4f} ms" if r["name"] == "segment_rows"
+               else "")
             for r in recs))
     return recs
 
@@ -1474,6 +1504,10 @@ def count_launches(fn, device: torch.device, steps: int | None, what: str,
             if launches[k] <= 0:
                 raise AssertionError(f"kernel {k} was not launched on the "
                                      f"training path ({what})")
+        if "segment_rows" in kernels and launches["segment_rows"] != (
+                launches["backward"] + launches["surfel_backward"]):
+            raise AssertionError(f"{what}: the segment kernel was not "
+                                 f"launched once a backward: {launches}")
     return out, launches
 
 
@@ -1650,6 +1684,7 @@ def train_bench(device: torch.device, scale: Scale,
 
     (losses, secs), launches = count_launches(run, device, steps, what,
                                               kernels=kernels)
+    reproducible(step_fn, TrainState.init(params, seed=0), state, ds, what)
     losses = torch.stack(losses).cpu().numpy()
     its = scale.train_iters / secs
     busy = device_busy(lambda: step_fn(state, 0), device, ds.num_views)
@@ -1827,7 +1862,8 @@ def phase_training(device: torch.device, scale: Scale) -> list[dict]:
     log(f"  {scale.width}x{scale.height} render forward + backward stages "
         f"(ms, each timed alone): "
         + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
-    records += [r for r in recs if r["name"] == "backward"]
+    records += [r for r in recs if r["name"] in ("backward",
+                                                 "segment_rows")]
 
     if scale.demo_iters:
         records += train_demo(device, scale)

@@ -12,10 +12,11 @@ repo's trained model ``runs/tpu_bricks_mcmc`` at 1920x1088 (1080 rows
 cannot be cut into bands of whole 16-row tiles, as JAX's
 ``render_tiled`` asserts).
 
-The steps of (a) and (b) run under ``torch.use_deterministic_algorithms``:
-without it the serial step itself is not bitwise reproducible on the card
-(``deterministic``), and (a) prints by how much its first step differs
-between two runs.
+The steps of (a) and (b) run in PyTorch's default mode: every sum of the
+train step is in an order its code fixes (the per-splat reduce is the
+segment kernel, ``csrc/segment.cu``), so the serial step is bitwise
+reproducible on the card, and (a) first checks that its first step run
+twice is bitwise equal.
 
 (a) A world of one on the card (NCCL, a 1x1 mesh, in this process):
 ``make_parallel_train_step`` and ``make_overlap_train_step`` each for
@@ -75,6 +76,7 @@ import torch
 import torch.distributed as dist
 
 import chip_smoke as CS
+from chip_smoke_repro import steps_twice
 from divshot_tpu_torch.apps.render import orbit_for_model
 from divshot_tpu_torch.dist import (band_camera, make_mesh,
                                     make_parallel_train_step, render_tiled)
@@ -112,36 +114,6 @@ def cell(device: torch.device, scale):
         TrainState.init(params, seed=0), 0)
     return cfg, ds, params, {"instance_capacity": CS.auto_icap(
         int(m["num_instances"]))}
-
-
-def set_deterministic(mode: bool, warn_only: bool = True) -> None:
-    """``torch.use_deterministic_algorithms``' own switch. The public
-    function also imports ``torch._inductor`` to set its flag, seconds on
-    the card's host, where nothing here compiles."""
-    torch._C._set_deterministic_algorithms(mode, warn_only=warn_only)
-
-
-@contextlib.contextmanager
-def deterministic():
-    """``torch.use_deterministic_algorithms`` on (warnings, not errors, for
-    an op without a deterministic version): on the card the train step
-    is not bitwise reproducible without it (the float cumsum of the
-    per-splat gradient reduce, ``raster.segment_rows_sorted``), and a
-    first Adam step turns that into whole learning rates."""
-    was = (torch.are_deterministic_algorithms_enabled(),
-           torch.is_deterministic_algorithms_warn_only_enabled(),
-           os.environ.get("CUBLAS_WORKSPACE_CONFIG"))
-    # cuBLAS's deterministic workspace (read at each call)
-    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
-    set_deterministic(True)
-    try:
-        yield
-    finally:
-        set_deterministic(was[0], warn_only=was[1])
-        if was[2] is None:
-            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
-        else:
-            os.environ["CUBLAS_WORKSPACE_CONFIG"] = was[2]
 
 
 def warm_groups(mesh, device: torch.device) -> None:
@@ -319,8 +291,8 @@ def band_records(device: torch.device, scale, scene, n: int) -> list[dict]:
 def world_of_one(device: torch.device, scale, warmed=lambda: None
                  ) -> list[dict]:
     """(a) and (c) over one band: the 1x1 mesh on NCCL (gloo on the CPU);
-    ``warmed()`` once the process's first deterministic step has loaded
-    its kernels (slow while other processes start on the host)."""
+    ``warmed()`` once the process's first steps have loaded its kernels
+    (slow while other processes start on the host)."""
     backend = "nccl" if device.type == "cuda" else "gloo"
     t0 = time.perf_counter()
 
@@ -331,20 +303,13 @@ def world_of_one(device: torch.device, scale, warmed=lambda: None
         mark("the cell made")
         n = scale.dist[0]
         views = [[i % ds.num_views] for i in range(n)]
-        # the serial step's first step twice, as it runs by default
-        one = [make_train_step(cfg, ds, rk)(TrainState.init(params, seed=0),
-                                            views[0])[0] for _ in range(2)]
-        diffs = {f: float((getattr(one[0].params, f).float() - getattr(
-            one[1].params, f).float()).abs().max()) for f in CS.PARAM_FIELDS}
-        mark("the default-mode steps done")
-        CS.log(f"  (a) the serial step's first step twice without "
-               f"deterministic algorithms: parameters bitwise equal "
-               f"{same_params(one[0].params, one[1].params)}, largest "
-               f"differences {diffs}")
-        stack.enter_context(deterministic())
-        make_train_step(cfg, ds, rk)(TrainState.init(params, seed=0),
-                                     views[0])   # the first such call warms
-        mark("the deterministic warm step done")
+        # the serial step's first step twice, in the default mode
+        diffs = steps_twice(make_train_step(cfg, ds, rk),
+                            TrainState.init(params, seed=0), views[:1],
+                            "(a) the serial step")
+        mark("the serial first step twice done")
+        CS.log("  (a) the serial step's first step twice in PyTorch's "
+               "default mode: the loss and the whole state bitwise equal")
         warmed()
         dist.init_process_group(backend, store=dist.HashStore(), rank=0,
                                 world_size=1)
@@ -416,7 +381,6 @@ def worker(rank: int, port: int, out: str, scale, device: torch.device
     init_multihost(f"localhost:{port}", WORKERS, rank, backend="gloo")
     CS.log(f"    (b) rank {rank}: in the world {time.time() - spawned:.2f} "
            f"s after the spawn")
-    set_deterministic(True)
     # the card is (a)'s until the go: processes that share a card run
     # time-sliced, and (a) measures its steps
     go = Path(out) / "go"
@@ -529,9 +493,7 @@ def _free_port() -> int:
 
 def spawn(tmp: str, scale, device: torch.device) -> list:
     port = _free_port()
-    # cuBLAS's deterministic workspace, set before the worker starts CUDA
     env = dict(os.environ, PYTHONPATH=str(REPO),
-               CUBLAS_WORKSPACE_CONFIG=":4096:8",
                DIVSHOT_SPAWNED=repr(time.time()))
     name = "full" if scale is CS.FULL else "tiny"
     procs = []

@@ -42,7 +42,7 @@ NATIVE_SRC = Path(__file__).resolve().parent / "native"
 GXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++20", "-pthread"]
 
 LAUNCHES = {"expand": 0, "forward": 0, "backward": 0, "surfel_forward": 0,
-            "surfel_backward": 0}
+            "surfel_backward": 0, "segment_rows": 0}
 
 _P = ctypes.c_void_p
 _I32 = ctypes.c_int32
@@ -59,6 +59,8 @@ _SIGNATURES = {
                                 _I32, ctypes.c_float, _P, _P, _P, _P],
     "divshot_backward_schedule": [_P, _I32, ctypes.c_int64, ctypes.c_int64,
                                   _P, _P],
+    "divshot_segment_rows": [_P, ctypes.c_int64, _I32, _I32, _I32, _P, _I32,
+                             _P, _P, _P, _I32, _P, _P],
 }
 
 

@@ -69,6 +69,19 @@ int divshot_surfel_backward(const float* table, int64_t num_instances,
                             float t_eps, const float* cot, const float* fwd,
                             float* grads, void* stream);
 
+// Per-gaussian sums of selected rows of a backward kernel's per-instance
+// output `grads` (rows x icap, in sorted order): out (nrows x n) row r,
+// gaussian g, the sum of grads[row0 + r * row_step][exp2sorted[i]] over
+// g's expansion slots i in [offsets[g], offsets[g] + counts[g]) below
+// icap, skipping sorted positions at or past tile_start[num_tiles], in an
+// order fixed by the code, the same on every launch: see segment.cu.
+int divshot_segment_rows(const float* grads, int64_t icap, int32_t row0,
+                         int32_t row_step, int32_t nrows,
+                         const int32_t* tile_start, int32_t num_tiles,
+                         const int32_t* exp2sorted, const int32_t* offsets,
+                         const int32_t* counts, int32_t n, float* out,
+                         void* stream);
+
 // The work split of the two backward kernels: for each of the `blocks`
 // blocks of a backward grid over these tiles, the unit that units::find
 // gives it, as rows (tile, s0, start, end) of `out` (blocks x 4), tile -1

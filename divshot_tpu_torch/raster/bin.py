@@ -12,8 +12,9 @@ sorts the keys and finds the per-tile ranges; ``expand_sorted`` runs the
 three and, unless ``build_table=False`` (the surfel path builds its own),
 builds the feature table, as the JAX function does after its Pallas call.
 ``segment_rows_sorted`` sums any per-instance rows of a backward kernel
-back to per-gaussian sums, without float atomics; ``reduce_grads_sorted``
-names the 3DGS backward's rows.
+back to per-gaussian sums through the segment kernel (``raster.segment_rows``,
+``csrc/segment.cu``: no float atomics, the same bits on every launch);
+``reduce_grads_sorted`` names the 3DGS backward's rows.
 
 The kernel merges the gaussians with the slots into one sequence and gives
 each block ``PIECE`` items of it (a piece); ``expand_partition`` writes out
@@ -299,10 +300,13 @@ def segment_rows_sorted(grads: torch.Tensor, bins: SortedBins,
                         rows) -> torch.Tensor:
     """Per-instance rows in sorted order -> (len(rows), N) per-gaussian
     sums of ``grads[rows]`` (counterpart of
-    ``pallas_bin.segment_rows_sorted``), by ``raster.segment_rows`` over
-    the inverse of the sort's permutation."""
-    inv = torch.empty_like(bins.perm)
-    inv[bins.perm] = torch.arange(grads.shape[1], device=grads.device)
+    ``pallas_bin.segment_rows_sorted``), by ``raster.segment_rows`` (the
+    segment kernel on the card) over the inverse of the sort's permutation
+    (expansion slot -> sorted position, int32)."""
+    icap = grads.shape[1]
+    inv = torch.empty((icap,), dtype=torch.int32, device=grads.device)
+    inv[bins.perm] = torch.arange(icap, dtype=torch.int32,
+                                  device=grads.device)
     return segment_rows(grads, bins.tile_start, inv, bins.g_offsets,
                         bins.g_counts, rows)
 

@@ -18,6 +18,13 @@ surviving pairs (``raster/units.py``); ``kernel_mask`` gives that pass's
 survivor mask on the card, ``rasterize_forward_plain(survivors=...)`` the
 walk from its plain version.
 
+``segment_rows`` is the wrapper of the CUDA segment kernel
+(``csrc/segment.cu``), which every backward route runs after its backward
+kernel: it sums a backward's per-instance rows back to per-gaussian sums,
+each gaussian's terms in an order the kernel fixes (no float atomics, no
+cumsum), so that a training step gives the same bits on every run; its
+plain version is ``segment_rows_plain``.
+
 ``rasterize_pallas`` is the differentiable raster over bins made by
 ``tiles.bin_gaussians`` (JAX's ``binning="xla"``; ``RasterPallas``, the
 counterpart of ``pallas_raster._make_raster``): its forward gathers the
@@ -534,30 +541,78 @@ def segment_rows(grads: torch.Tensor, tile_start: torch.Tensor,
                  exp2sorted: torch.Tensor, g_offsets: torch.Tensor,
                  g_counts: torch.Tensor, rows) -> torch.Tensor:
     """Per-instance rows in sorted order -> (len(rows), N) per-gaussian
-    sums of ``grads[rows]``, without float atomics.
+    sums of ``grads[rows]``, the wrapper of the CUDA segment kernel
+    (``csrc/segment.cu``): no float atomics, no cumsum, each gaussian's
+    terms added in an order the kernel fixes, so that every launch gives
+    the same bits.
 
-    Columns at or past ``tile_start[-1]`` (culled instances and the
-    capacity tail, never written by a kernel) are zeroed; the rows are
-    gathered back to expansion order through ``exp2sorted`` (expansion
-    slot -> sorted position), where each gaussian's instances are
-    contiguous, and its sum is the end-of-segment difference ``E[g] -
-    E[g-1]`` of one float32 cumsum per row (each row scanned as one 1-D
-    tensor: a scan along the last axis of a few long rows runs one block
-    per row on the card)."""
-    icap = grads.shape[1]
+    Gaussian g's instances are the expansion slots ``[g_offsets[g],
+    g_offsets[g] + g_counts[g])`` (cut at the capacity), each at sorted
+    position ``exp2sorted[slot]``; positions at or past ``tile_start[-1]``
+    (culled instances and the capacity tail, never written by a backward
+    kernel) count as 0, and ``tile_start[-1]`` is read on the card. A
+    gaussian without instances gets 0. On a CPU tensor it runs
+    ``segment_rows_plain``; on a CUDA tensor it launches the kernel or
+    raises."""
+    if grads.device.type == "cpu":
+        return segment_rows_plain(grads, tile_start, exp2sorted, g_offsets,
+                                  g_counts, rows)
     dev = grads.device
-    zero = torch.zeros((), device=dev)
-    live = torch.arange(icap, device=dev) < tile_start[-1]
-    sel = (grads[rows.start:rows.stop:rows.step] if isinstance(rows, range)
+    if not isinstance(rows, range):
+        # a list of rows: gathered into rows 0.. first
+        grads, rows = grads[list(rows)].contiguous(), range(len(rows))
+    row0, step, nrows = rows.start, rows.step, len(rows)
+    _build.require(grads, "grads", torch.float32)
+    icap = grads.shape[1]
+    if nrows and not (0 <= row0 < grads.shape[0]
+                      and 0 <= rows[-1] < grads.shape[0]):
+        raise ValueError(f"rows {list(rows)} out of the {grads.shape[0]} "
+                         f"rows")
+    n = g_counts.shape[0]
+    _build.require(tile_start, "tile_start", torch.int32, device=dev)
+    _build.require(exp2sorted, "exp2sorted", torch.int32, (icap,), dev)
+    _build.require(g_offsets, "g_offsets", torch.int32, (n,), dev)
+    _build.require(g_counts, "g_counts", torch.int32, (n,), dev)
+    out = torch.empty((nrows, n), dtype=torch.float32, device=dev)
+    err = _build.library().divshot_segment_rows(
+        grads.data_ptr(), icap, row0, step, nrows, tile_start.data_ptr(),
+        tile_start.shape[0] - 1, exp2sorted.data_ptr(), g_offsets.data_ptr(),
+        g_counts.data_ptr(), n, out.data_ptr(), _build.stream_ptr(dev))
+    _build.check_launch("segment_rows", err)
+    return out
+
+
+def segment_owners(g_offsets: torch.Tensor, g_counts: torch.Tensor,
+                   icap: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """-> (each instance's expansion slot, its gaussian), the slots of each
+    gaussian in order, cut at the capacity ``icap``."""
+    n = g_counts.shape[0]
+    dev = g_counts.device
+    lo = g_offsets.long()
+    lens = torch.clamp(torch.clamp_max(lo + g_counts.long().clamp_min(0),
+                                       icap) - lo, min=0)
+    owner = torch.repeat_interleave(torch.arange(n, device=dev), lens)
+    first = torch.cumsum(lens, 0) - lens
+    k = torch.arange(owner.numel(), device=dev) - first[owner]
+    return lo[owner] + k, owner
+
+
+def segment_rows_plain(grads: torch.Tensor, tile_start: torch.Tensor,
+                       exp2sorted: torch.Tensor, g_offsets: torch.Tensor,
+                       g_counts: torch.Tensor, rows) -> torch.Tensor:
+    """Plain PyTorch version of ``segment_rows``, in the dtype of
+    ``grads``: each gaussian's live terms gathered to expansion order and
+    added per gaussian by ``index_add_`` (on the CPU one add after another,
+    in slot order)."""
+    sel = (grads[rows.start:rows.stop:rows.step]
+           if isinstance(rows, range) and rows.step > 0
            else grads[list(rows)])
-    g = torch.where(live[None, :], sel, zero)
-    ge = torch.index_select(g, 1, exp2sorted.long())
-    cs = torch.stack([torch.cumsum(row, 0) for row in ge])
-    hi = (g_offsets + g_counts - 1).long()
-    e = torch.where(hi[None, :] >= 0, cs[:, torch.clamp(hi, 0, icap - 1)],
-                    zero)
-    e_prev = torch.cat([e.new_zeros((len(g), 1)), e[:, :-1]], 1)
-    return torch.where((g_counts > 0)[None, :], e - e_prev, zero)
+    slot, owner = segment_owners(g_offsets, g_counts, grads.shape[1])
+    pos = exp2sorted.long()[slot]
+    live = pos < tile_start[-1].long()
+    vals = torch.where(live[None, :], sel[:, pos], sel.new_zeros(()))
+    return sel.new_zeros((sel.shape[0], g_counts.shape[0])).index_add_(
+        1, owner, vals)
 
 
 def grad_fields(seg: torch.Tensor, nch: int) -> dict[str, torch.Tensor]:

@@ -28,11 +28,16 @@ with contextlib.redirect_stdout(buf):
     recs = chip_smoke.phase_capture(torch.device("cpu"), chip_smoke.TINY)
 out = buf.getvalue()
 assert [(r["scene"], r["name"]) for r in recs] == [
-    ("jpeg_capture_32", k) for k in ("expand", "forward", "backward")] + [
+    ("jpeg_capture_32", k) for k in ("expand", "forward", "backward",
+                                     "segment_rows")] + [
     ("hybrid_tpu_bricks_mcmc", k) for k in ("expand", "forward")], recs
 for r in recs:
-    assert r["max_abs_err"] == 0.0 and r["bound_ms"] > 0, r
-    assert r["route"] == "cuda" and r["library_ms"] is None
+    assert r["route"] == "cuda" and r["bound_ms"] > 0, r
+    if r["name"] == "segment_rows":
+        # held against float64: within the bound of its order of adds
+        assert r["library_ms"] > 0 and r["bound_ratio"] <= 1.0, r
+    else:
+        assert r["max_abs_err"] == 0.0 and r["library_ms"] is None, r
 assert "quantised blocks bitwise equal to the encoder's" in out
 assert recs[0]["jpeg_load_s"] > 0 and recs[0]["png_load_s"] > 0
 assert recs[0]["eval_psnr"] > 0 and recs[0]["it_per_s"] > 0
@@ -40,7 +45,7 @@ assert recs[0]["pose_err"] <= 1e-6 and recs[0]["psnr_gap"] <= 1.0
 assert "cameras equal to the source's" in out
 lib = recs[0]["host_library"]
 assert lib["pack_lib_ms"] > 0 and lib["points_py_ms"] > 0
-ms = recs[3]["mesh_ms"]
+ms = recs[4]["mesh_ms"]
 assert set(ms) == {"rasterize_mesh", "shade_gbuffer_lights",
                    "path_trace_mesh", "hybrid_frame", "restir_direct",
                    "ssgi", "deferred_shade_gi"}, ms

@@ -36,21 +36,29 @@ scenes = ["dist_1x1_train_500_64", "tiled_2band_64x64_rank0_tpu_bricks_mcmc",
 want = []
 for s in scenes:
     want += [(s, k) for k in ("expand", "forward")
-             + (("backward",) if s.startswith("dist_") else ())]
+             + (("backward", "segment_rows") if s.startswith("dist_")
+                else ())]
 assert [(r["scene"], r["name"]) for r in recs] == want, recs
 keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
 for r in recs:
     assert keys <= set(r), r
-    assert r["max_abs_err"] == 0.0 and r["bound_ms"] > 0, r
-    assert r["route"] == "cuda" and r["library_ms"] is None
-assert set(recs[2]["dist"]["its"]) == {"serial", "parallel", "overlap"}
-assert recs[2]["it_per_s"] > 0 and recs[2]["dist"]["backend"] == "gloo"
+    assert r["route"] == "cuda" and r["bound_ms"] > 0, r
+    if r["name"] == "segment_rows":
+        # held against float64: within the bound of its order of adds
+        assert r["library_ms"] > 0 and r["bound_ratio"] <= 1.0, r
+    else:
+        assert r["max_abs_err"] == 0.0 and r["library_ms"] is None, r
+assert set(recs[3]["dist"]["its"]) == {"serial", "parallel", "overlap"}
+assert recs[3]["it_per_s"] > 0 and recs[3]["dist"]["backend"] == "gloo"
 one = recs[0]["dist"]["tiled_one_band"]
 assert one["bands"] == 1 and one["diff"] == 0.0
-assert set(recs[0]["dist"]["default_mode_first_step_diff"]) == {
-    "means", "scales", "quats", "opacity", "sh0", "shN", "alive"}
-for r in recs[5:11]:
+# the serial step's first step run twice: the loss and every state tensor
+first = recs[0]["dist"]["default_mode_first_step_diff"]
+assert {"loss", "params.opacity", "mu.means", "nu.scales",
+        "dstate.grad_accum", "gen"} <= set(first), first
+assert not any(first.values()), first
+for r in recs[6:14]:
     d = r["dist"]
     assert d["1x2"]["rows"] == 512 and d["1x2"]["means_diff"] == 0.0
     assert 2 * d["1x2"]["moment_bytes"] == d["1x2"]["whole_bytes"]
@@ -60,7 +68,7 @@ tiled = [r["tiled"] for r in recs if "tiled" in r]
 assert [t["bands"] for t in tiled] == [2, 2]
 assert all(t["diff"] <= 2e-3 and t["over_bar"]["rest"] == 0
            and t["tie_pixels"] >= 0 for t in tiled)
-assert [r["launches"] for r in recs[3:5]] == [0, 0]    # the CPU's
+assert [r["launches"] for r in recs[4:6]] == [0, 0]    # the CPU's
 assert "the parallel and overlap steps bitwise the serial step" in out
 assert "with both ranks' parameters bitwise equal" in out
 assert "MultiHostTrainer's losses bitwise equal across ranks" in out

@@ -344,9 +344,8 @@ def test_nan_instances_are_culled_in_every_plain_kernel():
 
 
 def test_reduce_grads_sorted_sums_each_gaussians_rows():
-    """The permutation scatter + cumsum reduce against a direct per-owner
-    sum over the kept instances (6e-7 of the largest sum: float32 cumsum
-    differences)."""
+    """The reduce against a direct per-owner sum over the kept instances
+    in float64 (6e-7 of the largest sum: float32 rounding)."""
     p, (proj, colors, opac), cam = _prep(8)
     sb = B.expand_sorted(proj.means2d, proj.conics, proj.depths, proj.radii,
                          proj.radii_xy, proj.rad2, colors, opac,
@@ -415,8 +414,14 @@ def test_wrappers_take_the_plain_version_on_cpu():
     b2 = R.rasterize_backward_plain(sb.table, sb.tile_start, cot, f1,
                                     width=cam.width, height=cam.height)
     assert torch.equal(b1, b2)
+    inv = torch.empty_like(sb.perm)
+    inv[sb.perm] = torch.arange(4096)
+    args = (b1, sb.tile_start, inv.int(), sb.g_offsets, sb.g_counts,
+            range(12))
+    assert torch.equal(R.segment_rows(*args), R.segment_rows_plain(*args))
     assert _build.LAUNCHES == {"expand": 0, "forward": 0, "backward": 0,
-                               "surfel_forward": 0, "surfel_backward": 0}
+                               "surfel_forward": 0, "surfel_backward": 0,
+                               "segment_rows": 0}
 
 
 def test_non_cpu_tensors_never_reach_the_plain_version():
@@ -438,6 +443,13 @@ def test_non_cpu_tensors_never_reach_the_plain_version():
                              torch.zeros((20, 8, 256), device="meta"),
                              torch.zeros((20, 8, 256), device="meta"),
                              width=cam.width, height=cam.height)
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        R.segment_rows(torch.zeros((12, 4), device="meta"),
+                       torch.zeros(21, dtype=torch.int32, device="meta"),
+                       torch.zeros(4, dtype=torch.int32, device="meta"),
+                       torch.zeros(3, dtype=torch.int32, device="meta"),
+                       torch.zeros(3, dtype=torch.int32, device="meta"),
+                       range(12))
 
 
 class _OnCard:

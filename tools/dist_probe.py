@@ -2,10 +2,10 @@
 """The measurements behind ``chip_smoke.py``'s phase 14 and the steps of
 its loss bars, on the card.
 
-    python3 tools/dist_probe.py [--bars] [--determinism] [--early-wave]
+    python3 tools/dist_probe.py [--bars] [--early-wave]
                                 [--device cuda] [--tiny]
 
-With no option it runs all three; each prints ``PROBE`` lines.
+With no option it runs both; each prints ``PROBE`` lines.
 ``--tiny`` takes ``chip_smoke.TINY``'s train cell (for the CPU).
 
 ``--bars``: the loss bars of phases 5(a) and 12(c) (ADC+ and MCMC through
@@ -17,12 +17,6 @@ for the dynamic bar): the fewest steps at which a bar holds
 (``chip_smoke.BAR_STEPS``, ``Scale.dyn_bars``). A prefix of a run is the
 run of that many steps: nothing in these steps depends on the total.
 
-``--determinism``: a float32 ``torch.cumsum`` of 2^22 values and
-``bin.segment_rows_sorted`` at the train cell (phase 5(b)'s), each twice,
-without and with ``torch.use_deterministic_algorithms``; the train cell's
-first step twice each way, with the largest parameter differences; the
-seconds of the first and later steps in deterministic mode.
-
 ``--early-wave``: where the SH gradients' all-reduces start in the train
 cell's backward, in a world of one (NCCL on a card, gloo on the CPU):
 the ms from the backward's start to each all-reduce, to the backward's
@@ -32,7 +26,6 @@ end and to the late wave.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import dataclasses
 import sys
 import time
@@ -48,7 +41,6 @@ import chip_smoke_dist as CSD  # noqa: E402
 import chip_smoke_routes as RT  # noqa: E402
 from divshot_tpu_torch.core.config import TrainConfig  # noqa: E402
 from divshot_tpu_torch.models import dynamic as DYN  # noqa: E402
-from divshot_tpu_torch.raster import bin as B  # noqa: E402
 from divshot_tpu_torch.train.trainer import (TrainState, Trainer,  # noqa: E402
                                              make_train_step)
 
@@ -111,55 +103,6 @@ def bars(device) -> None:
         f"{prefix_ratios(losses, (45, 60, 75, 90, 100, 120, 150), k=15)}")
 
 
-def _twice(fn):
-    a, b = fn(), fn()
-    return bool(torch.equal(a, b)), float((a - b).abs().max())
-
-
-def determinism(device, scale) -> None:
-    x = torch.randn(1 << 22, device=device)
-    cfg, ds, params, rk = CSD.cell(device, scale)
-    fr = CS.make_frame(params, ds.cameras[0], rk["instance_capacity"])
-    cot = CS.loss_cotangent(fr, CS.train_loss(cfg, ds.images[0], fr.cam, 0))
-    w, h = fr.cam.width, fr.cam.height
-    fwd = CS.GAUSS.fwd(fr.table, fr.tile_start, width=w, height=h, nch=3)
-    g = CS.GAUSS.bwd(fr.table, fr.tile_start, cot, fwd, width=w, height=h,
-                     nch=3, with_absgrad=False)
-
-    def first():
-        st, _ = make_train_step(cfg, ds, rk)(TrainState.init(params, seed=0),
-                                             [0])
-        return st.params
-
-    def timed_step():
-        CS.sync(device)
-        t0 = time.perf_counter()
-        make_train_step(cfg, ds, rk)(TrainState.init(params, seed=0), [0])
-        CS.sync(device)
-        return time.perf_counter() - t0
-
-    for det in (False, True):
-        with CSD.deterministic() if det else contextlib.nullcontext():
-            if det:
-                secs = [timed_step() for _ in range(3)]
-            seg = lambda: B.segment_rows_sorted(g, fr.bins,  # noqa: E731
-                                                range(12))
-            log(f"deterministic {det}: cumsum of 2^22 floats twice "
-                f"(bitwise, largest difference) "
-                f"{_twice(lambda: torch.cumsum(x, 0))}; "
-                f"segment_rows_sorted at the train cell twice {_twice(seg)}"
-                f" of a largest {float(seg().abs().max()):.1f}")
-            a, b = first(), first()
-            diffs = {f: float((getattr(a, f).float() - getattr(b, f).float())
-                              .abs().max()) for f in CS.PARAM_FIELDS}
-            log(f"deterministic {det}: the train cell's first step twice, "
-                f"parameters bitwise {CSD.same_params(a, b)}, largest "
-                f"differences {diffs}")
-            if det:
-                log(f"deterministic steps' seconds (the first loads its "
-                    f"kernels): {[round(t, 3) for t in secs]}")
-
-
 def early_wave(device, scale) -> None:
     backend = "nccl" if device.type == "cuda" else "gloo"
     dist.init_process_group(backend, store=dist.HashStore(), rank=0,
@@ -206,21 +149,18 @@ def early_wave(device, scale) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--bars", action="store_true")
-    ap.add_argument("--determinism", action="store_true")
     ap.add_argument("--early-wave", action="store_true")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--tiny", action="store_true")
     args = ap.parse_args(argv)
     device = torch.device(args.device)
     scale = CS.TINY if args.tiny else CS.FULL
-    every = not (args.bars or args.determinism or args.early_wave)
+    every = not (args.bars or args.early_wave)
     if device.type == "cuda":
         CS.phase_identity(device, CS.FULL)
         CS.phase_build(device, CS.FULL)
     if every or args.bars:
         bars(device)
-    if every or args.determinism:
-        determinism(device, scale)
     if every or args.early_wave:
         early_wave(device, scale)
     return 0
