@@ -45,10 +45,10 @@ Phases, each a function of ``(device, scale)``:
    Each of (a)-(e) counts its own kernel launches, and each holds the
    three kernels against their plain versions at its own shapes (the
    backward with the cotangent of its loss and its AbsGS setting), and the
-   segment kernel (``csrc/segment.cu``, the per-splat sums of the
-   backward's rows, one launch a backward) against its plain version run
-   in float64, within the worst-case bound of its order of additions, a
-   second launch bitwise (``check_segment``); (b) also runs the step twice
+   segment reduce (``csrc/segment.cu``, the per-splat sums of the
+   backward's rows: a stage and a reduce launch, counted once a backward)
+   against its plain versions run in float64, within the worst-case bound
+   of its order of additions, a second call bitwise (``check_segment``); (b) also runs the step twice
    from one state in PyTorch's default mode, the first step from the fresh
    state and 2 steps from the trained one, and requires the losses,
    parameters, Adam moments, densify statistics and generator bitwise
@@ -389,7 +389,7 @@ KERNELS = {
                          replaces="divshot_tpu/raster/pallas_bin.py:366"),
 }
 VIEWER_KERNELS = ("expand", "forward")
-# each backward's rows go through one launch of the segment kernel
+# each backward's rows go through one call of the segment reduce
 TRAIN_KERNELS = ("expand", "forward", "backward", "segment_rows")
 SURFEL_KERNELS = ("expand", "surfel_forward", "surfel_backward",
                   "segment_rows")
@@ -1407,8 +1407,11 @@ def kernel_records(scene: str, fr: Frame, device: torch.device,
             + (f", {r['rows']} rows of {r['live_instances']} live "
                f"instances, longest segment {r['longest_segment']}, err "
                f"{r['bound_ratio']:.3e} of its order's bound from float64, "
-               f"a second launch bitwise, index_add_ "
-               f"{r['library_ms']:.4f} ms" if r["name"] == "segment_rows"
+               f"a second call bitwise, stage {r['stage_ms']:.4f} ms + "
+               f"reduce {r['reduce_ms']:.4f} ms, index_add_ "
+               f"{r['library_ms']:.4f} ms, from the sorted rows "
+               f"{r['library_sorted_ms']:.4f} ms"
+               if r["name"] == "segment_rows"
                else "")
             for r in recs))
     return recs

@@ -2,10 +2,10 @@
 for ``chip_smoke.py`` (phases 5, 6, 12 and 14, through its
 ``kernel_records`` and ``train_bench``) and ``tools/repro_probe.py``.
 
-``check_segment`` holds the segment kernel (``raster.segment_rows``,
-``csrc/segment.cu``) against its plain version run in float64, within the
-worst-case bound of the kernel's order of additions, and a second launch
-bitwise. ``steps_twice`` runs a train step twice from copies of one state
+``check_segment`` holds the segment reduce (``raster.segment_rows``,
+``csrc/segment.cu``: a stage launch and a reduce launch) against its plain
+versions run in float64, within the worst-case bound of the kernel's order
+of additions, and a second call bitwise. ``steps_twice`` runs a train step twice from copies of one state
 in PyTorch's default mode and compares the losses and every tensor the
 state carries; ``reproducible`` requires them bitwise equal.
 """
@@ -38,7 +38,7 @@ EPS32 = 2.0 ** -24
 
 def segment_bound_terms(lens: torch.Tensor) -> torch.Tensor:
     """Per gaussian, at least the most roundings any of its terms goes
-    through in the segment kernel (csrc/segment.cu): a team of w lanes
+    through in the segment reduce (csrc/segment.cu): a team of w lanes
     (8, 32, or the block's 256) adds ceil(len / w) - 1 in a lane, log2(min(w,
     32)) in the butterfly, and a block 7 more adding its 8 warp sums; each
     is at most ceil(len / 8) + 11. The bound on a sum's error is that count
@@ -48,28 +48,33 @@ def segment_bound_terms(lens: torch.Tensor) -> torch.Tensor:
 
 def check_segment(grads: torch.Tensor, bins: B.SortedBins, nrows: int,
                   device: torch.device, iters: int) -> tuple:
-    """The segment kernel (``raster.segment_rows``) on a backward's rows:
-    a second launch bitwise equal, and each sum within
-    ``segment_bound_terms(len) * EPS32 * sum|terms|`` of the plain version
-    run in float64 -> a ``_records`` row with its time, the float32 plain
-    version's, and the time of ``index_add_`` of the rows already gathered
-    to expansion order (one PyTorch call computing the same sums), and the
-    bytes it must move: each live instance's rows, every slot index of the
+    """The segment reduce (``raster.segment_rows``: the stage and the
+    reduce launch) on a backward's rows: a second call bitwise equal, and
+    each sum within ``segment_bound_terms(len) * EPS32 * sum|terms|`` of
+    the plain versions run in float64 -> a ``_records`` row with the
+    pair's time and each launch's alone, the float32 plain versions', the
+    times of two PyTorch calls computing the same sums (``index_add_`` of
+    the rows already in expansion order, and ``index_add_`` straight from
+    the sorted rows by each kept position's owner), and the bytes the
+    function must move: each live instance's rows, every slot index of the
     segments, the offsets and counts, and the sums."""
     icap = grads.shape[1]
-    inv = torch.empty((icap,), dtype=torch.int32, device=grads.device)
-    inv[bins.perm] = torch.arange(icap, dtype=torch.int32,
-                                  device=grads.device)
     rows = range(nrows)
-    args = (bins.tile_start, inv, bins.g_offsets, bins.g_counts, rows)
+    args = (bins.tile_start, bins.perm, bins.g_offsets, bins.g_counts, rows)
+    seg = (bins.g_offsets, bins.g_counts)
     got = R.segment_rows(grads, *args)
     if not torch.equal(got, R.segment_rows(grads, *args)):
-        raise AssertionError("segment_rows: two launches differ")
-    want = R.segment_rows_plain(grads.double(), *args)
-    mags = R.segment_rows_plain(grads.abs().double(), *args)
-    slot, owner = R.segment_owners(bins.g_offsets, bins.g_counts, icap)
+        raise AssertionError("segment_rows: two calls differ")
+
+    def plain(g):
+        return R.segment_reduce_plain(R.segment_stage_plain(g, *args), *seg,
+                                      nrows)
+
+    want = plain(grads.double())
+    mags = plain(grads.abs().double())
+    slot, owner = R.segment_owners(*seg, icap)
     lens = torch.bincount(owner, minlength=bins.g_counts.shape[0])
-    # on the CPU the wrapper runs the plain version, which adds a
+    # on the CPU the wrapper runs the plain versions, which add a
     # segment's L terms one after another: L - 1 roundings at most
     terms = (segment_bound_terms(lens) if grads.device.type == "cuda"
              else torch.clamp_min(lens - 1, 0))
@@ -84,24 +89,39 @@ def check_segment(grads: torch.Tensor, bins: B.SortedBins, nrows: int,
         raise AssertionError(f"segment_rows: a sum {ratio:.3f} times its "
                              f"bound from the float64 sum")
     kept = int(bins.tile_start[-1])
-    pos = inv.long()[slot]
-    live = int((pos < kept).sum())
-    vals = torch.where((pos < kept)[None, :], grads[:nrows, pos],
-                       grads.new_zeros(()))
+    # the kept positions whose slots lie in a segment (every one, on both
+    # binnings)
+    live_pos = bins.perm[:kept] < slot.numel()
+    live = int(live_pos.sum())
+    records = R.segment_stage(grads, *args)
+    vals = records[slot, :nrows].T.contiguous()
     acc = grads.new_zeros((nrows, lens.numel()))
     time_ms = _cs().time_ms
     library_ms = time_ms(lambda: acc.index_add_(1, owner, vals), device,
                          iters)
-    ms = time_ms(lambda: R.segment_rows(grads, *args), device, iters)
-    plain_ms = time_ms(lambda: R.segment_rows_plain(grads, *args), device,
-                       1, warmup=0)
+    # each kept position's owner, n (a column no one reads) where its slot
+    # lies in no segment
     n = lens.numel()
+    s_owner = torch.where(live_pos, bins.s_owner[:kept].long(), n)
+    acc_sorted = grads.new_zeros((nrows, n + 1))
+    sorted_ms = time_ms(lambda: acc_sorted.index_add_(
+        1, s_owner, grads[:nrows, :kept]), device, iters)
+    ms = time_ms(lambda: R.segment_rows(grads, *args), device, iters)
+    stage_ms = time_ms(lambda: R.segment_stage(grads, *args), device, iters)
+    reduce_ms = time_ms(lambda: R.segment_reduce(records, *seg, nrows),
+                        device, iters)
+    plain_ms = time_ms(lambda: R.segment_reduce_plain(
+        R.segment_stage_plain(grads, *args), *seg, nrows), device, 1,
+        warmup=0)
     nbytes = live * nrows * 4 + slot.numel() * 4 + n * 8 + nrows * n * 4
     return ("segment_rows", float(err.max()) if err.numel() else 0.0, ms,
             plain_ms, nbytes, live * nrows,
             {"library_ms": library_ms,
-             "library": "index_add_ of the rows gathered to expansion order",
-             "bound_ratio": ratio, "rows": nrows, "live_instances": live,
+             "library": "index_add_ of the rows in expansion order",
+             "library_sorted": "index_add_ of the sorted rows by owner",
+             "library_sorted_ms": sorted_ms, "stage_ms": stage_ms,
+             "reduce_ms": reduce_ms, "bound_ratio": ratio, "rows": nrows,
+             "live_instances": live,
              "longest_segment": int(lens.max()) if n else 0})
 
 

@@ -133,11 +133,8 @@ def xla_frame(params, cam, cap: int) -> CS.Frame:
     table = R.build_feature_table(proj.means2d.detach(),
                                   proj.conics.detach(), colors.detach(),
                                   opac.detach(), tb.inst_gauss)
-    e2s = tb.exp2sorted.long()
-    perm = torch.empty_like(e2s)
-    perm[e2s] = torch.arange(e2s.numel(), device=e2s.device)
     bins = B.SortedBins(table=table, tile_start=tb.tile_start,
-                        s_owner=tb.inst_gauss, perm=perm,
+                        s_owner=tb.inst_gauss, perm=tb.perm,
                         g_offsets=tb.g_offsets, g_counts=tb.g_counts,
                         num_instances=tb.num_instances,
                         tile_counts=tb.tile_counts)

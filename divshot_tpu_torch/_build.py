@@ -59,8 +59,10 @@ _SIGNATURES = {
                                 _I32, ctypes.c_float, _P, _P, _P, _P],
     "divshot_backward_schedule": [_P, _I32, ctypes.c_int64, ctypes.c_int64,
                                   _P, _P],
-    "divshot_segment_rows": [_P, ctypes.c_int64, _I32, _I32, _I32, _P, _I32,
-                             _P, _P, _P, _I32, _P, _P],
+    "divshot_segment_stage": [_P, ctypes.c_int64, _I32, _I32, _I32, _P,
+                              _I32, _P, _P, _P, _I32, _P, _I32, _P],
+    "divshot_segment_reduce": [_P, _I32, _I32, _P, _P, _I32, ctypes.c_int64,
+                               _P, _P],
 }
 
 
@@ -190,12 +192,15 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def check_launch(name: str, err: int) -> None:
-    """Raise on a non-zero cudaError_t, else count the launch."""
+def check_launch(name: str, err: int, count: bool = True) -> None:
+    """Raise on a non-zero cudaError_t, else count the launch (unless
+    ``count`` is False: one launch of a kernel whose wrapper counts its
+    launches together)."""
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError_t {err}")
-    LAUNCHES[name] += 1
+    if count:
+        LAUNCHES[name] += 1
 
 
 def stream_ptr(device: torch.device) -> int:

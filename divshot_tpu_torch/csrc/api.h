@@ -70,17 +70,27 @@ int divshot_surfel_backward(const float* table, int64_t num_instances,
                             float* grads, void* stream);
 
 // Per-gaussian sums of selected rows of a backward kernel's per-instance
-// output `grads` (rows x icap, in sorted order): out (nrows x n) row r,
-// gaussian g, the sum of grads[row0 + r * row_step][exp2sorted[i]] over
-// g's expansion slots i in [offsets[g], offsets[g] + counts[g]) below
-// icap, skipping sorted positions at or past tile_start[num_tiles], in an
-// order fixed by the code, the same on every launch: see segment.cu.
-int divshot_segment_rows(const float* grads, int64_t icap, int32_t row0,
-                         int32_t row_step, int32_t nrows,
-                         const int32_t* tile_start, int32_t num_tiles,
-                         const int32_t* exp2sorted, const int32_t* offsets,
-                         const int32_t* counts, int32_t n, float* out,
-                         void* stream);
+// output `grads` (rows x icap, in sorted order), in two launches: see
+// segment.cu. The stage writes, for each sorted position j below icap whose
+// slot perm[j] (the sort's permutation: sorted position -> expansion slot)
+// lies in a segment, the record records[perm[j]] (`stride` floats: the
+// nrows rows grads[row0 + r * row_step][j], or zeros at or past
+// tile_start[num_tiles], then zeros to the stride); stride is nrows
+// rounded up to 8, at most 32. The reduce writes out (nrows x n): row r,
+// gaussian g, the sum of row r of the records of g's expansion slots
+// [offsets[g], offsets[g] + counts[g]) below icap, in an order fixed by the
+// code, the same on every launch. offsets must be the exclusive prefix sum
+// of counts.
+int divshot_segment_stage(const float* grads, int64_t icap, int32_t row0,
+                          int32_t row_step, int32_t nrows,
+                          const int32_t* tile_start, int32_t num_tiles,
+                          const int64_t* perm, const int32_t* offsets,
+                          const int32_t* counts, int32_t n, float* records,
+                          int32_t stride, void* stream);
+int divshot_segment_reduce(const float* records, int32_t stride,
+                           int32_t nrows, const int32_t* offsets,
+                           const int32_t* counts, int32_t n, int64_t icap,
+                           float* out, void* stream);
 
 // The work split of the two backward kernels: for each of the `blocks`
 // blocks of a backward grid over these tiles, the unit that units::find

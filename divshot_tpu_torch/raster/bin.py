@@ -301,13 +301,8 @@ def segment_rows_sorted(grads: torch.Tensor, bins: SortedBins,
     """Per-instance rows in sorted order -> (len(rows), N) per-gaussian
     sums of ``grads[rows]`` (counterpart of
     ``pallas_bin.segment_rows_sorted``), by ``raster.segment_rows`` (the
-    segment kernel on the card) over the inverse of the sort's permutation
-    (expansion slot -> sorted position, int32)."""
-    icap = grads.shape[1]
-    inv = torch.empty((icap,), dtype=torch.int32, device=grads.device)
-    inv[bins.perm] = torch.arange(icap, dtype=torch.int32,
-                                  device=grads.device)
-    return segment_rows(grads, bins.tile_start, inv, bins.g_offsets,
+    segment reduce on the card) through the sort's permutation."""
+    return segment_rows(grads, bins.tile_start, bins.perm, bins.g_offsets,
                         bins.g_counts, rows)
 
 

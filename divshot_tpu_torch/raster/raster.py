@@ -18,24 +18,30 @@ surviving pairs (``raster/units.py``); ``kernel_mask`` gives that pass's
 survivor mask on the card, ``rasterize_forward_plain(survivors=...)`` the
 walk from its plain version.
 
-``segment_rows`` is the wrapper of the CUDA segment kernel
+``segment_rows`` is the wrapper of the CUDA segment reduce
 (``csrc/segment.cu``), which every backward route runs after its backward
 kernel: it sums a backward's per-instance rows back to per-gaussian sums,
 each gaussian's terms in an order the kernel fixes (no float atomics, no
-cumsum), so that a training step gives the same bits on every run; its
-plain version is ``segment_rows_plain``.
+cumsum), so that a training step gives the same bits on every run. It is
+two launches: ``segment_stage`` writes the rows instance-major in
+expansion order through the sort's permutation, ``segment_reduce`` sums
+each gaussian's contiguous run of records; their plain versions are
+``segment_stage_plain`` and ``segment_reduce_plain``, and
+``segment_rows_plain`` states the same function through the inverse
+permutation.
 
 ``rasterize_pallas`` is the differentiable raster over bins made by
 ``tiles.bin_gaussians`` (JAX's ``binning="xla"``; ``RasterPallas``, the
 counterpart of ``pallas_raster._make_raster``): its forward gathers the
 table and runs the forward kernel, its backward runs the backward kernel
 and ``reduce_instance_grads``, the per-gaussian segment sums over the
-binning's ``exp2sorted``, ``g_offsets`` and ``g_counts``.
+binning's ``perm``, ``g_offsets`` and ``g_counts``.
 """
 
 from __future__ import annotations
 
 import math
+import re
 from typing import NamedTuple
 
 import numpy as np
@@ -537,48 +543,110 @@ def _backward_chunk_rows(grads, cols, valid, f, dx, dy, s, alpha, g, cf,
 # the differentiable raster over XLA-binned instances
 
 
-def segment_rows(grads: torch.Tensor, tile_start: torch.Tensor,
-                 exp2sorted: torch.Tensor, g_offsets: torch.Tensor,
-                 g_counts: torch.Tensor, rows) -> torch.Tensor:
-    """Per-instance rows in sorted order -> (len(rows), N) per-gaussian
-    sums of ``grads[rows]``, the wrapper of the CUDA segment kernel
-    (``csrc/segment.cu``): no float atomics, no cumsum, each gaussian's
-    terms added in an order the kernel fixes, so that every launch gives
-    the same bits.
+# the widest record the segment stage writes (floats): ``kMaxStride`` in
+# csrc/segment.cu
+SEGMENT_MAX_ROWS = int(re.search(r"constexpr int kMaxStride = (\d+);",
+                                 (_build.CSRC / "segment.cu").read_text())
+                       .group(1))
 
-    Gaussian g's instances are the expansion slots ``[g_offsets[g],
-    g_offsets[g] + g_counts[g])`` (cut at the capacity), each at sorted
-    position ``exp2sorted[slot]``; positions at or past ``tile_start[-1]``
-    (culled instances and the capacity tail, never written by a backward
-    kernel) count as 0, and ``tile_start[-1]`` is read on the card. A
-    gaussian without instances gets 0. On a CPU tensor it runs
-    ``segment_rows_plain``; on a CUDA tensor it launches the kernel or
-    raises."""
+
+def segment_stride(nrows: int) -> int:
+    """The floats of a staged record of ``nrows`` rows: rounded up to 8
+    (whole 32-byte sectors)."""
+    return -(-nrows // 8) * 8
+
+
+def segment_stage(grads: torch.Tensor, tile_start: torch.Tensor,
+                  perm: torch.Tensor, g_offsets: torch.Tensor,
+                  g_counts: torch.Tensor, rows) -> torch.Tensor:
+    """The segment reduce's first launch: per-instance rows in sorted order
+    -> records (icap, ``segment_stride(len(rows))``) in expansion order.
+    The record of slot ``perm[j]`` holds ``grads[rows, j]`` when ``j <
+    tile_start[-1]`` and zeros for a culled position, then zeros to the
+    stride; only the slots inside a segment (``[0, demand)`` cut at icap)
+    get one. On a CPU tensor it runs ``segment_stage_plain``; on a CUDA
+    tensor it launches ``stage_kernel`` (``csrc/segment.cu``) or raises."""
     if grads.device.type == "cpu":
-        return segment_rows_plain(grads, tile_start, exp2sorted, g_offsets,
-                                  g_counts, rows)
+        return segment_stage_plain(grads, tile_start, perm, g_offsets,
+                                   g_counts, rows)
     dev = grads.device
     if not isinstance(rows, range):
         # a list of rows: gathered into rows 0.. first
         grads, rows = grads[list(rows)].contiguous(), range(len(rows))
     row0, step, nrows = rows.start, rows.step, len(rows)
-    _build.require(grads, "grads", torch.float32)
-    icap = grads.shape[1]
-    if nrows and not (0 <= row0 < grads.shape[0]
-                      and 0 <= rows[-1] < grads.shape[0]):
+    if not 0 < nrows <= SEGMENT_MAX_ROWS:
+        raise ValueError(f"segment_rows sums 1 to {SEGMENT_MAX_ROWS} rows, "
+                         f"got {nrows}")
+    if not (0 <= row0 < grads.shape[0] and 0 <= rows[-1] < grads.shape[0]):
         raise ValueError(f"rows {list(rows)} out of the {grads.shape[0]} "
                          f"rows")
-    n = g_counts.shape[0]
+    _build.require(grads, "grads", torch.float32)
+    icap, n = grads.shape[1], g_counts.shape[0]
     _build.require(tile_start, "tile_start", torch.int32, device=dev)
-    _build.require(exp2sorted, "exp2sorted", torch.int32, (icap,), dev)
+    _build.require(perm, "perm", torch.int64, (icap,), dev)
+    _build.require(g_offsets, "g_offsets", torch.int32, (n,), dev)
+    _build.require(g_counts, "g_counts", torch.int32, (n,), dev)
+    stride = segment_stride(nrows)
+    records = torch.empty((icap, stride), dtype=torch.float32, device=dev)
+    err = _build.library().divshot_segment_stage(
+        grads.data_ptr(), icap, row0, step, nrows, tile_start.data_ptr(),
+        tile_start.shape[0] - 1, perm.data_ptr(), g_offsets.data_ptr(),
+        g_counts.data_ptr(), n, records.data_ptr(), stride,
+        _build.stream_ptr(dev))
+    _build.check_launch("segment_rows", err, count=False)
+    return records
+
+
+def segment_reduce(records: torch.Tensor, g_offsets: torch.Tensor,
+                   g_counts: torch.Tensor, nrows: int) -> torch.Tensor:
+    """The segment reduce's second launch: records in expansion order ->
+    (nrows, N), row r of gaussian g the sum of row r of the records of its
+    slots ``[g_offsets[g], g_offsets[g] + g_counts[g])`` (cut at the
+    capacity), in an order the kernel fixes. On a CPU tensor it runs
+    ``segment_reduce_plain``; on a CUDA tensor it launches
+    ``reduce_kernel`` (``csrc/segment.cu``) or raises."""
+    if records.device.type == "cpu":
+        return segment_reduce_plain(records, g_offsets, g_counts, nrows)
+    dev = records.device
+    _build.require(records, "records", torch.float32, device=dev)
+    icap, stride = records.shape
+    n = g_counts.shape[0]
     _build.require(g_offsets, "g_offsets", torch.int32, (n,), dev)
     _build.require(g_counts, "g_counts", torch.int32, (n,), dev)
     out = torch.empty((nrows, n), dtype=torch.float32, device=dev)
-    err = _build.library().divshot_segment_rows(
-        grads.data_ptr(), icap, row0, step, nrows, tile_start.data_ptr(),
-        tile_start.shape[0] - 1, exp2sorted.data_ptr(), g_offsets.data_ptr(),
-        g_counts.data_ptr(), n, out.data_ptr(), _build.stream_ptr(dev))
-    _build.check_launch("segment_rows", err)
+    err = _build.library().divshot_segment_reduce(
+        records.data_ptr(), stride, nrows, g_offsets.data_ptr(),
+        g_counts.data_ptr(), n, icap, out.data_ptr(), _build.stream_ptr(dev))
+    _build.check_launch("segment_rows", err, count=False)
+    return out
+
+
+def segment_rows(grads: torch.Tensor, tile_start: torch.Tensor,
+                 perm: torch.Tensor, g_offsets: torch.Tensor,
+                 g_counts: torch.Tensor, rows) -> torch.Tensor:
+    """Per-instance rows in sorted order -> (len(rows), N) per-gaussian
+    sums of ``grads[rows]`` (at most ``SEGMENT_MAX_ROWS`` rows), the
+    wrapper of the CUDA segment reduce (``csrc/segment.cu``): no float
+    atomics, no cumsum, each gaussian's terms added in an order the kernel
+    fixes, so that every launch gives the same bits.
+
+    Gaussian g's instances are the expansion slots ``[g_offsets[g],
+    g_offsets[g] + g_counts[g])`` (cut at the capacity; ``g_offsets`` the
+    exclusive prefix sum of ``g_counts``); ``perm`` (int64) is the sort's
+    permutation, each sorted position's slot, and keeps the slots past the
+    demand past that position (a stable sort that puts the empty slots'
+    key last, as both binnings' does). Positions at or past
+    ``tile_start[-1]`` (culled instances and the capacity tail, never
+    written by a backward kernel) count as 0, and ``tile_start[-1]`` is
+    read on the card. A gaussian without instances gets 0. Two launches,
+    counted once: ``segment_stage`` writes the rows instance-major in
+    expansion order, ``segment_reduce`` sums each gaussian's contiguous
+    run. On a CPU tensor it runs their plain versions."""
+    records = segment_stage(grads, tile_start, perm, g_offsets, g_counts,
+                            rows)
+    out = segment_reduce(records, g_offsets, g_counts, len(rows))
+    if grads.device.type == "cuda":
+        _build.LAUNCHES["segment_rows"] += 1
     return out
 
 
@@ -597,16 +665,52 @@ def segment_owners(g_offsets: torch.Tensor, g_counts: torch.Tensor,
     return lo[owner] + k, owner
 
 
+def _selected(grads: torch.Tensor, rows) -> torch.Tensor:
+    """``grads[rows]`` for a ``range`` (a view when its step is positive)
+    or a list of rows."""
+    return (grads[rows.start:rows.stop:rows.step]
+            if isinstance(rows, range) and rows.step > 0
+            else grads[list(rows)])
+
+
+def segment_stage_plain(grads: torch.Tensor, tile_start: torch.Tensor,
+                        perm: torch.Tensor, g_offsets: torch.Tensor,
+                        g_counts: torch.Tensor, rows) -> torch.Tensor:
+    """Plain PyTorch version of ``segment_stage``, in the dtype of
+    ``grads``, for ``perm`` a permutation of the slots: every position's
+    rows scattered to its slot, then the culled positions' records zeroed.
+    A slot outside every segment, which the kernel leaves unwritten and no
+    reduce reads, holds its position's record here."""
+    del g_offsets, g_counts
+    sel = _selected(grads, rows)
+    perm = perm.long()
+    records = sel.new_zeros((grads.shape[1], segment_stride(sel.shape[0])))
+    records[perm, :sel.shape[0]] = sel.T
+    records[perm[int(tile_start[-1]):]] = 0.0
+    return records
+
+
+def segment_reduce_plain(records: torch.Tensor, g_offsets: torch.Tensor,
+                         g_counts: torch.Tensor, nrows: int) -> torch.Tensor:
+    """Plain PyTorch version of ``segment_reduce``, in the dtype of
+    ``records``: each gaussian's records added by ``index_add_`` (on the
+    CPU one add after another, in slot order)."""
+    slot, owner = segment_owners(g_offsets, g_counts, records.shape[0])
+    return records.new_zeros((nrows, g_counts.shape[0])).index_add_(
+        1, owner, records[slot, :nrows].T)
+
+
 def segment_rows_plain(grads: torch.Tensor, tile_start: torch.Tensor,
                        exp2sorted: torch.Tensor, g_offsets: torch.Tensor,
                        g_counts: torch.Tensor, rows) -> torch.Tensor:
-    """Plain PyTorch version of ``segment_rows``, in the dtype of
-    ``grads``: each gaussian's live terms gathered to expansion order and
-    added per gaussian by ``index_add_`` (on the CPU one add after another,
-    in slot order)."""
-    sel = (grads[rows.start:rows.stop:rows.step]
-           if isinstance(rows, range) and rows.step > 0
-           else grads[list(rows)])
+    """The function ``segment_rows`` computes, written from the other side
+    of the sort, in the dtype of ``grads``: ``exp2sorted`` (each expansion
+    slot's sorted position, the inverse of ``perm``) gathers each
+    gaussian's live terms to expansion order, and ``index_add_`` adds them
+    per gaussian (on the CPU one add after another, in slot order, so it
+    gives the bits of ``segment_stage_plain`` then
+    ``segment_reduce_plain``). The tests hold the port against it."""
+    sel = _selected(grads, rows)
     slot, owner = segment_owners(g_offsets, g_counts, grads.shape[1])
     pos = exp2sorted.long()[slot]
     live = pos < tile_start[-1].long()
@@ -628,18 +732,18 @@ def grad_fields(seg: torch.Tensor, nch: int) -> dict[str, torch.Tensor]:
 
 
 def reduce_instance_grads(grads: torch.Tensor, tile_start: torch.Tensor,
-                          exp2sorted: torch.Tensor, g_offsets: torch.Tensor,
+                          perm: torch.Tensor, g_offsets: torch.Tensor,
                           g_counts: torch.Tensor, nch: int = 3
                           ) -> dict[str, torch.Tensor]:
     """The backward kernel's rows (9 + nch, I), in the sorted order of
-    ``tiles.bin_gaussians``, -> per-gaussian sums (counterpart of
-    ``pallas_raster.reduce_instance_grads``; the port's kernel writes no
-    boundary blocks, so there are none to add): dict(means2d (N, 2),
-    conics (N, 3), colors (N, nch), opacity (N,), absgrad (N, 2), npix
-    (N,))."""
-    return grad_fields(segment_rows(grads, tile_start, exp2sorted,
-                                    g_offsets, g_counts, range(9 + nch)),
-                       nch)
+    ``tiles.bin_gaussians`` (whose sort's permutation is ``perm``), ->
+    per-gaussian sums (counterpart of
+    ``pallas_raster.reduce_instance_grads``, which takes the inverse,
+    ``exp2sorted``; the port's kernel writes no boundary blocks, so there
+    are none to add): dict(means2d (N, 2), conics (N, 3), colors (N, nch),
+    opacity (N,), absgrad (N, 2), npix (N,))."""
+    return grad_fields(segment_rows(grads, tile_start, perm, g_offsets,
+                                    g_counts, range(9 + nch)), nch)
 
 
 def split_tiles(out: torch.Tensor, background: torch.Tensor, width: int,
@@ -689,12 +793,12 @@ class RasterPallas(torch.autograd.Function):
     rgb first), ``opacities (N,)``, ``background (3,)``, the zero sinks
     ``absgrad_sink (N, 2)`` / ``npix_sink (N,)`` (their gradients are the
     AbsGS sums and the pixel counts), and the binning's ``inst_gauss``,
-    ``tile_start``, ``exp2sorted``, ``g_offsets`` and ``g_counts``, which
+    ``tile_start``, ``perm``, ``g_offsets`` and ``g_counts``, which
     get no gradient -> (image (H, W, nch), alpha (H, W))."""
 
     @staticmethod
     def forward(ctx, means2d, conics, colors, opacities, background,
-                absgrad_sink, npix_sink, inst_gauss, tile_start, exp2sorted,
+                absgrad_sink, npix_sink, inst_gauss, tile_start, perm,
                 g_offsets, g_counts, cfg: RasterArgs):
         del absgrad_sink, npix_sink
         nch = colors.shape[1]
@@ -707,12 +811,12 @@ class RasterPallas(torch.autograd.Function):
                                 cfg.tile_size, nch)
         ctx.cfg, ctx.nch = cfg, nch
         ctx.save_for_backward(table, out, background, t_px, tile_start,
-                              exp2sorted, g_offsets, g_counts)
+                              perm, g_offsets, g_counts)
         return img, 1.0 - t_px
 
     @staticmethod
     def backward(ctx, g_img, g_alpha):
-        (table, out, background, t_px, tile_start, exp2sorted, g_offsets,
+        (table, out, background, t_px, tile_start, perm, g_offsets,
          g_counts) = ctx.saved_tensors
         cfg, nch = ctx.cfg, ctx.nch
         cot = tile_cotangent(g_img, g_alpha, background, cfg.width,
@@ -721,7 +825,7 @@ class RasterPallas(torch.autograd.Function):
             table, tile_start, cot, out, width=cfg.width, height=cfg.height,
             tile_size=cfg.tile_size, nch=nch, t_eps=cfg.t_eps,
             with_absgrad=cfg.with_absgrad)
-        g = reduce_instance_grads(grads, tile_start, exp2sorted, g_offsets,
+        g = reduce_instance_grads(grads, tile_start, perm, g_offsets,
                                   g_counts, nch=nch)
         d_bg = (None if g_img is None
                 else torch.einsum("hwc,hw->c", g_img[..., :3], t_px))
@@ -749,5 +853,5 @@ def rasterize_pallas(means2d, conics, colors, opacities, bins, *,
     cfg = RasterArgs(width, height, tile_size, t_eps, bool(with_absgrad))
     return RasterPallas.apply(
         means2d, conics, colors, opacities, background, absgrad_sink,
-        npix_sink, bins.inst_gauss, bins.tile_start, bins.exp2sorted,
+        npix_sink, bins.inst_gauss, bins.tile_start, bins.perm,
         bins.g_offsets, bins.g_counts, cfg)

@@ -55,6 +55,8 @@ class TileBins(NamedTuple):
     exp2sorted: torch.Tensor      # (I,) int32 expansion slot -> sorted
     g_offsets: torch.Tensor       # (N,) int32 exclusive offsets
     g_counts: torch.Tensor        # (N,) int32 instances per gaussian
+    perm: torch.Tensor            # (I,) int64 sorted -> expansion slot (the
+    #                               port's: its reduce's input)
 
 
 def _tile_grid(width: int, height: int, tile_size: int) -> tuple[int, int]:
@@ -190,7 +192,7 @@ def _bin(means2d, depths, radii, width, height, tile_size, tile_capacity,
                     tile_counts=tile_counts, inst_gauss=s_gauss,
                     tile_start=tile_bounds, inst_tile=s_tile,
                     exp2sorted=exp2sorted.to(i32), g_offsets=offsets,
-                    g_counts=counts)
+                    g_counts=counts, perm=perm)
 
 
 # ---------------------------------------------------------------------------

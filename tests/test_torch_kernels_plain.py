@@ -416,9 +416,10 @@ def test_wrappers_take_the_plain_version_on_cpu():
     assert torch.equal(b1, b2)
     inv = torch.empty_like(sb.perm)
     inv[sb.perm] = torch.arange(4096)
-    args = (b1, sb.tile_start, inv.int(), sb.g_offsets, sb.g_counts,
-            range(12))
-    assert torch.equal(R.segment_rows(*args), R.segment_rows_plain(*args))
+    seg = (sb.g_offsets, sb.g_counts, range(12))
+    assert torch.equal(R.segment_rows(b1, sb.tile_start, sb.perm, *seg),
+                       R.segment_rows_plain(b1, sb.tile_start, inv.int(),
+                                            *seg))
     assert _build.LAUNCHES == {"expand": 0, "forward": 0, "backward": 0,
                                "surfel_forward": 0, "surfel_backward": 0,
                                "segment_rows": 0}

@@ -127,7 +127,7 @@ def test_plain_reduce_matches_jax_on_xla_bins_with_a_long_segment():
     rows = np.random.default_rng(8).standard_normal((12, cap)).astype(
         np.float32)
     got = R.reduce_instance_grads(torch.tensor(rows), tb.tile_start,
-                                  tb.exp2sorted, tb.g_offsets, tb.g_counts)
+                                  tb.perm, tb.g_offsets, tb.g_counts)
     num_tiles = tb.tile_start.shape[0] - 1
     want = jax_raster.reduce_instance_grads(
         jnp.asarray(rows), jnp.zeros((num_tiles, 12, 256)),
@@ -153,8 +153,9 @@ def test_plain_reduce_against_a_loop(case):
     perm = rng.permutation(icap)
     kept = 50
     rows = [4, 0, 5] if case == "rows" else range(6)
+    # the wrapper takes each sorted position's slot: perm's inverse
     args = (torch.tensor([0, kept], dtype=torch.int32),
-            torch.tensor(perm, dtype=torch.int32), torch.tensor(offsets),
+            torch.tensor(np.argsort(perm)), torch.tensor(offsets),
             torch.tensor(counts), rows)
     got = R.segment_rows(torch.tensor(grads), *args)
     want = np.zeros((len(rows), counts.size))
@@ -204,12 +205,13 @@ def test_plain_reduce_bounded_where_the_prefix_formula_is_not():
     assert np.abs(want - exact).max() > 10 * np.abs(got - exact).max()
 
 
-def _prefix_formula(grads, tile_start, exp2sorted, g_offsets, g_counts,
-                    rows):
+def _prefix_formula(grads, tile_start, perm, g_offsets, g_counts, rows):
     """JAX's formula (``pallas_bin.segment_rows_sorted``) in PyTorch: each
     sum the difference of two entries of one float32 cumsum over the
-    capacity."""
+    capacity, gathered through the inverse of the sort's permutation."""
     icap = grads.shape[1]
+    exp2sorted = torch.empty_like(perm)
+    exp2sorted[perm] = torch.arange(icap)
     zero = torch.zeros(())
     live = torch.arange(icap) < tile_start[-1]
     g = torch.where(live[None, :], grads[list(rows)], zero)

@@ -57,17 +57,19 @@ def log(msg: str) -> None:
     print(f"PROBE {msg}", flush=True)
 
 
-def prefix_formula(grads, tile_start, exp2sorted, g_offsets, g_counts,
-                   rows):
+def prefix_formula(grads, tile_start, perm, g_offsets, g_counts, rows):
     """JAX's per-splat reduce (``pallas_bin.segment_rows_sorted``) in
     PyTorch: each sum the difference of two entries of one float32 cumsum
-    per row over the capacity."""
+    per row over the capacity, the rows gathered to expansion order through
+    the inverse of the sort's permutation ``perm``."""
     icap = grads.shape[1]
     dev = grads.device
     zero = torch.zeros((), device=dev)
     live = torch.arange(icap, device=dev) < tile_start[-1]
     g = torch.where(live[None, :], grads[list(rows)], zero)
-    ge = torch.index_select(g, 1, exp2sorted.long())
+    exp2sorted = torch.empty_like(perm)
+    exp2sorted[perm] = torch.arange(icap, device=dev)
+    ge = torch.index_select(g, 1, exp2sorted)
     cs = torch.stack([torch.cumsum(row, 0) for row in ge])
     hi = (g_offsets + g_counts - 1).long()
     e = torch.where(hi[None, :] >= 0, cs[:, torch.clamp(hi, 0, icap - 1)],
